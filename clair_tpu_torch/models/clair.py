@@ -1,0 +1,165 @@
+"""The multi-task variant-calling network as a torch module (port of the
+deterministic forward of clair_tpu/models/clair.py).
+
+  (B, 33, 8, 4) pileup tensor
+    -> flatten base/channel axes -> (B, 33, 32)
+    -> BiLSTM(128) -> BiLSTM(128)            ops/bilstm_stream.py (CUDA kernel)
+    -> L3 slice dense: einsum btf,ftu->buf, flattened row-major to U*F
+    -> L4 dense(192) + SELU -> four stems dense(96) + SELU
+    -> four heads, dense + SELU *then* softmax (in float32)
+
+Parameters keep the JAX layout and names: the module's state_dict keys are
+the JAX pytree's paths joined with dots (``lstm1.fw.w``, ``l3.b``,
+``head_gt21.w``), so ``params_from_jax`` / ``params_to_jax`` move weights
+across unchanged. Under a reduced compute dtype every parameter is cast at
+use, as the JAX forward does; softmax runs in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from clair_tpu.params import ModelConfig
+from clair_tpu_torch.models.layers import selu
+from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# (stem, head) pairs in output order: gt21, genotype, indel length 1 and 2
+_HEADS = (("l5_1", "head_gt21"), ("l5_2", "head_genotype"),
+          ("l5_3", "head_len1"), ("l5_4", "head_len2"))
+
+
+def param_shapes(config: ModelConfig = ModelConfig()) -> Dict:
+    """The parameter tree of clair_tpu.models.clair.init_params, as shapes."""
+    t, feat = config.no_of_positions, config.feature_dim
+    h1, h2 = config.lstm1_num_units, config.lstm2_num_units
+    l3_in = 2 * h2
+
+    def lstm(in_dim, hidden):
+        one = {"w": (in_dim, 4 * hidden), "u": (hidden, 4 * hidden), "b": (4 * hidden,)}
+        return {"fw": dict(one), "bw": dict(one)}
+
+    def dense(in_dim, out_dim):
+        return {"w": (in_dim, out_dim), "b": (out_dim,)}
+
+    l4, l5 = config.l4_num_units, config.l5_num_units
+    return {
+        "lstm1": lstm(feat, h1),
+        "lstm2": lstm(2 * h1, h2),
+        "l3": {"w": (l3_in, t, config.l3_num_units), "b": (l3_in, config.l3_num_units)},
+        "l4": dense(config.l3_num_units * l3_in, l4),
+        "l5_1": dense(l4, l5),
+        "l5_2": dense(l4, l5),
+        "l5_3": dense(l4, l5),
+        "l5_4": dense(l4, l5),
+        "head_gt21": dense(l5, config.output_gt21_shape),
+        "head_genotype": dense(l5, config.output_genotype_shape),
+        "head_len1": dense(l5, config.output_indel_length_shape_1),
+        "head_len2": dense(l5, config.output_indel_length_shape_2),
+    }
+
+
+def _module_tree(shapes: Dict, device) -> nn.Module:
+    if all(isinstance(v, tuple) for v in shapes.values()):
+        return nn.ParameterDict({
+            k: nn.Parameter(torch.zeros(s, device=device), requires_grad=False)
+            for k, s in shapes.items()
+        })
+    return nn.ModuleDict({k: _module_tree(v, device) for k, v in shapes.items()})
+
+
+def _tensor_tree(module: nn.Module) -> Dict:
+    if isinstance(module, nn.ParameterDict):
+        return dict(module.items())
+    return {k: _tensor_tree(m) for k, m in module.named_children()}
+
+
+def _map_tree(fn, tree: Dict) -> Dict:
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX parameter pytree (nested dicts of arrays) as a state_dict."""
+    flat = {}
+
+    def walk(prefix, node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}.", v)
+            else:
+                flat[prefix + k] = torch.from_numpy(np.array(v, dtype=np.float32))
+
+    walk("", tree)
+    return flat
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
+    """A state_dict as the JAX parameter pytree of float32 numpy arrays."""
+    tree: Dict = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().to("cpu", torch.float32).numpy()
+    return tree
+
+
+class ClairNet(nn.Module):
+    """The deterministic (calling) forward. Parameters keep the JAX layout
+    and carry no gradient: training comes with its own port."""
+
+    def __init__(self, config: ModelConfig = ModelConfig(), device=None):
+        super().__init__()
+        if config.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {config.compute_dtype!r} not in {sorted(COMPUTE_DTYPES)}")
+        if config.use_pallas_bilstm or config.use_pallas_train_bilstm:
+            raise NotImplementedError(
+                "use_pallas_bilstm / use_pallas_train_bilstm select kernels "
+                "not yet ported; the port runs the streaming BiLSTM kernel"
+            )
+        self.config = config
+        for name, shapes in param_shapes(config).items():
+            self.add_module(name, _module_tree(shapes, device))
+
+    @classmethod
+    def from_jax(cls, tree: Dict, config: ModelConfig = ModelConfig(), device=None) -> "ClairNet":
+        model = cls(config, device)
+        model.load_state_dict(params_from_jax(tree))
+        return model
+
+    def forward_logits(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """(B, 33, 8, 4) float32 -> the four SELU-activated head outputs
+        (pre-softmax) in the compute dtype."""
+        config = self.config
+        dtype = COMPUTE_DTYPES[config.compute_dtype]
+        p = {k: _tensor_tree(m) for k, m in self.named_children()}
+        if dtype != torch.float32:
+            p = _map_tree(lambda t: t.to(dtype), p)
+        b = x.shape[0]
+        h = x.reshape(b, config.no_of_positions, config.feature_dim).to(dtype)
+        h = bilstm_stream(p["lstm1"], h)
+        h = bilstm_stream(p["lstm2"], h)
+
+        # L3 slice dense: per feature column, time -> units; (B, U, F) is
+        # flattened row-major to U*F, and the (F, U) bias is transposed
+        l3 = torch.einsum("btf,ftu->buf", h, p["l3"]["w"])
+        l3 = selu(l3 + p["l3"]["b"].T[None]).reshape(b, -1)
+        l4 = selu(_dense(p["l4"], l3))
+        # every head applies SELU before its softmax (trained-model contract)
+        return tuple(
+            selu(_dense(p[head], selu(_dense(p[stem], l4)))) for stem, head in _HEADS
+        )
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The four softmax probability tensors, always float32."""
+        return tuple(torch.softmax(l.float(), dim=-1) for l in self.forward_logits(x))
+
+
+def _dense(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"] + p["b"]
+

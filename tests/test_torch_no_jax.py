@@ -1,0 +1,40 @@
+"""The port never imports JAX: not its package, its CLI, its predictor,
+models or kernel wrappers (checked in a fresh interpreter), and no file of
+it names jax in an import."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+PORT = pathlib.Path(__file__).resolve().parent.parent / "clair_tpu_torch"
+
+PROBE = """
+import sys
+import clair_tpu_torch, clair_tpu_torch.cli, clair_tpu_torch.__main__
+import clair_tpu_torch.pipeline.call_var
+import clair_tpu_torch.models.checkpoint, clair_tpu_torch.models.layers
+import clair_tpu_torch.models.bilstm, clair_tpu_torch.models.clair
+import clair_tpu_torch.ops.build, clair_tpu_torch.ops.bilstm_stream
+from clair_tpu_torch.models.checkpoint import load_checkpoint
+load_checkpoint("examples/ont_synthetic.ckpt")
+assert "torch" in sys.modules
+print("jax" in sys.modules, sorted(m for m in sys.modules if m.startswith("jax")))
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE], capture_output=True, text=True,
+        timeout=300, cwd=PORT.parent,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "False []"
+
+
+def test_no_port_source_imports_jax():
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.MULTILINE)
+    sources = sorted(PORT.rglob("*.py"))
+    assert len(sources) >= 9
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
