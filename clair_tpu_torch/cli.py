@@ -7,14 +7,22 @@ every predictor through its module-level ``_predictor_from``, and
 ``_port_predictor`` swaps in this module's factory for the length of the
 command, so the runner drives the port's CUDA ``Predictor``.
 
-After a calling command, one JSON line on stderr reports how many times
-each kernel of the port launched during it.
+The training commands (``train``, ``train_clr``, ``evaluate``) take the JAX
+package's flags but run the port's own loop (``pipeline/train.py``) on one
+CUDA device; the flags of what is not ported yet (multi-GPU, profiling, the
+other BiLSTM kernels) raise NotImplementedError.
+
+After a command, one JSON line on stderr reports how many times each kernel
+of the port launched during it; after a training command it also carries
+the per-epoch (loss sum, epoch) pairs and the best epoch.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
+import logging
 import sys
 
 from clair_tpu import cli as jax_cli
@@ -51,18 +59,26 @@ def _port_predictor():
 
 
 def _kernel_counts():
-    from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
+    from clair_tpu_torch.ops.bilstm_stream import bilstm_stream, bilstm_stream_backward
 
-    return {"bilstm_stream": bilstm_stream.launches}
+    return {"bilstm_stream": bilstm_stream.launches,
+            "bilstm_stream_backward": bilstm_stream_backward.launches}
+
+
+@contextlib.contextmanager
+def _reporting_launches(report):
+    """Print one JSON line on stderr after the command: each kernel's
+    launches during it, and what the command put in ``report``."""
+    before = _kernel_counts()
+    yield
+    after = _kernel_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    print(json.dumps({"kernel_launches": launches, **report}), file=sys.stderr)
 
 
 def _run_with_port_predictor(command, argv):
-    before = _kernel_counts()
-    with _port_predictor():
+    with _reporting_launches({}), _port_predictor():
         command(argv)
-    after = _kernel_counts()
-    launches = {k: after[k] - before[k] for k in after}
-    print(json.dumps({"kernel_launches": launches}), file=sys.stderr)
 
 
 def _given(argv, flag):
@@ -94,12 +110,136 @@ def cmd_call_bam_parallel(argv):
     _run_with_port_predictor(jax_cli.cmd_call_bam_parallel, argv)
 
 
+def _load_dataset(args):
+    from clair_tpu_torch.data.bins import build_bin_from_tensors, load_bin, load_train_val_bins
+
+    if args.train_bin_fn and args.validation_bin_fn:
+        return load_train_val_bins(args.train_bin_fn, args.validation_bin_fn)
+    if args.bin_fn:
+        return load_bin(args.bin_fn)
+    return build_bin_from_tensors(args.tensor_fn, args.var_fn, args.bed_fn)
+
+
+def _refuse_unported_training_flags(args):
+    refused = (
+        (args.num_devices is not None and args.num_devices > 1,
+         "--num_devices > 1: multi-GPU training", "Queue 1 item 6"),
+        (args.coordinator_address is not None,
+         "--coordinator_address: multi-host training", "Queue 1 item 6"),
+        (args.model_parallel > 1, "--model_parallel > 1: the sharded dense trunk",
+         "Queue 1 item 6"),
+        (args.profile_dir is not None, "--profile_dir: a profiler trace of training",
+         "Queue 1 item 5"),
+        (args.no_stream_bilstm, "--no_stream_bilstm: the BiLSTM kernels other than "
+         "the streaming pair", "Queue 2 items 2-4"),
+    )
+    for given, what, item in refused:
+        if given:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def cmd_train(argv, schedule="adaptive", device="cuda"):
+    """The JAX package's ``train`` (and, with schedule "clr",
+    ``train_clr``) on one device (the command line's is CUDA), with the same
+    flags."""
+    parser = argparse.ArgumentParser(prog="train", description="Train the model")
+    jax_cli._add_dataset_args(parser)
+    parser.add_argument("--chkpnt_fn", default=None)
+    parser.add_argument("--ochk_prefix", default=None)
+    parser.add_argument("--learning_rate", type=float, default=None)
+    parser.add_argument("--lambd", type=float, default=None)
+    parser.add_argument("--SGDM", action="store_true")
+    parser.add_argument("--Adam", action="store_true")
+    parser.add_argument("--cross_entropy", action="store_true")
+    parser.add_argument("--focal_loss", action="store_true")
+    parser.add_argument("--clr_mode", default="tri", choices=["tri", "tri2", "exp"])
+    parser.add_argument("--maxEpoch", type=int, default=None)
+    parser.add_argument("--num_devices", type=int, default=None)
+    parser.add_argument("--model_parallel", type=int, default=1)
+    parser.add_argument("--coordinator_address", default=None)
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--decompress_workers", type=int, default=None,
+                        help="bin-block decompression threads for the epoch "
+                             "feed (default: one per spare core, up to 4)")
+    parser.add_argument("--profile_dir", default=None)
+    parser.add_argument("--train_compute_dtype", default=None,
+                        choices=["float32", "bfloat16"],
+                        help="matmul/activation dtype for the train step "
+                             "(master weights, loss and cell state stay "
+                             "float32; default: TrainingConfig default)")
+    parser.add_argument("--no_stream_bilstm", action="store_true")
+    args = parser.parse_args(argv)
+    _refuse_unported_training_flags(args)
+    logging.basicConfig(format="%(message)s", level=logging.INFO)
+    if args.num_processes is not None or args.process_id is not None:
+        parser.error("--num_processes/--process_id require --coordinator_address")
+
+    from clair_tpu.params import (
+        CLR_MAX_LR, INITIAL_LEARNING_RATE, L2_REGULARIZATION_LAMBDA, MAX_EPOCH,
+        ModelConfig,
+    )
+    from clair_tpu_torch.pipeline.train import TrainingConfig, train_model
+
+    optimizer = "SGDM" if args.SGDM else ("Adam" if args.Adam else None)
+    loss = "CrossEntropy" if args.cross_entropy else ("FocalLoss" if args.focal_loss else None)
+    model = ModelConfig(
+        **{k: v for k, v in dict(optimizer_name=optimizer, loss_function=loss).items() if v}
+    )
+    config = TrainingConfig(
+        model=model,
+        learning_rate=args.learning_rate or INITIAL_LEARNING_RATE,
+        l2_lambda=args.lambd if args.lambd is not None else L2_REGULARIZATION_LAMBDA,
+        output_prefix=args.ochk_prefix,
+        init_checkpoint=args.chkpnt_fn,
+        schedule=schedule if schedule == "adaptive" else args.clr_mode,
+        clr_max_lr=CLR_MAX_LR,
+        max_epochs=args.maxEpoch or MAX_EPOCH,
+        # for the adaptive schedule --maxEpoch acts as a hard safety cap
+        hard_max_epochs=args.maxEpoch if schedule == "adaptive" else None,
+        decompress_workers=args.decompress_workers,
+        device=device,
+        **({"train_compute_dtype": args.train_compute_dtype}
+           if args.train_compute_dtype else {}),
+    )
+    dataset = _load_dataset(args)
+    report = {}
+    with _reporting_launches(report):
+        result = train_model(dataset, config)
+        report.update(training_losses=result.training_losses,
+                      validation_losses=result.validation_losses,
+                      best_epoch=result.best_epoch)
+
+
+def cmd_train_clr(argv):
+    cmd_train(argv, schedule="clr")
+
+
+def cmd_evaluate(argv, device="cuda"):
+    parser = argparse.ArgumentParser(prog="evaluate", description="Evaluate a model")
+    jax_cli._add_dataset_args(parser)
+    parser.add_argument("--chkpnt_fn", required=True)
+    args = parser.parse_args(argv)
+    logging.basicConfig(format="%(message)s", level=logging.INFO)
+
+    from clair_tpu.params import ModelConfig
+    from clair_tpu_torch.models.checkpoint import load_checkpoint
+    from clair_tpu_torch.pipeline.evaluate import evaluate_model
+
+    params, _ = load_checkpoint(args.chkpnt_fn)
+    with _reporting_launches({}):
+        evaluate_model(params, ModelConfig(), _load_dataset(args), device=device)
+
+
 COMMANDS = {
     "call_var": cmd_call_var,
     "call_bam": cmd_call_bam,
     "callVarBam": cmd_call_bam,
     "call_bam_parallel": cmd_call_bam_parallel,
     "callVarBamParallel": cmd_call_bam_parallel,
+    "train": cmd_train,
+    "train_clr": cmd_train_clr,
+    "evaluate": cmd_evaluate,
 }
 
 

@@ -1,30 +1,35 @@
-"""The multi-task variant-calling network as a torch module (port of the
-deterministic forward of clair_tpu/models/clair.py).
+"""The multi-task variant-calling network as a torch module (port of
+clair_tpu/models/clair.py).
 
   (B, 33, 8, 4) pileup tensor
     -> flatten base/channel axes -> (B, 33, 32)
-    -> BiLSTM(128) -> BiLSTM(128)            ops/bilstm_stream.py (CUDA kernel)
+    -> BiLSTM(128) -> BiLSTM(128)            ops/bilstm_stream.py (CUDA kernels)
+       (training: dropout 0.5 after the second)
     -> L3 slice dense: einsum btf,ftu->buf, flattened row-major to U*F
-    -> L4 dense(192) + SELU -> four stems dense(96) + SELU
+    -> L4 dense(192) + SELU (training: alpha-dropout 0.5)
+    -> four stems dense(96) + SELU (training: alpha-dropout 0.2 each)
     -> four heads, dense + SELU *then* softmax (in float32)
 
 Parameters keep the JAX layout and names: the module's state_dict keys are
 the JAX pytree's paths joined with dots (``lstm1.fw.w``, ``l3.b``,
 ``head_gt21.w``), so ``params_from_jax`` / ``params_to_jax`` move weights
-across unchanged. Under a reduced compute dtype every parameter is cast at
-use, as the JAX forward does; softmax runs in float32.
+across unchanged. They are trainable float32 masters; under a reduced
+compute dtype every parameter is cast at use, as the JAX forward does, and
+the gradient flows back through the cast. Softmax runs in float32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from clair_tpu.params import ModelConfig
-from clair_tpu_torch.models.layers import selu
+from clair_tpu_torch.models.layers import (
+    alpha_dropout, dropout, glorot_uniform, he_fan_in, selu,
+)
 from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -63,10 +68,27 @@ def param_shapes(config: ModelConfig = ModelConfig()) -> Dict:
     }
 
 
+def init_params(generator: torch.Generator, config: ModelConfig = ModelConfig()) -> Dict:
+    """A fresh parameter tree in the JAX layout (nested dicts of float32 CPU
+    tensors), drawn from ``generator`` with the JAX package's initialisers:
+    glorot_uniform for the LSTM ``w`` and ``u``, he_fan_in for the L3 and
+    dense weights, zero biases."""
+    def draw(path, node):
+        if isinstance(node, dict):
+            return {k: draw(path + (k,), v) for k, v in node.items()}
+        if path[-1] == "b":
+            return torch.zeros(node)
+        if path[0].startswith("lstm"):
+            return glorot_uniform(generator, node)
+        return he_fan_in(generator, node)
+
+    return draw((), param_shapes(config))
+
+
 def _module_tree(shapes: Dict, device) -> nn.Module:
     if all(isinstance(v, tuple) for v in shapes.values()):
         return nn.ParameterDict({
-            k: nn.Parameter(torch.zeros(s, device=device), requires_grad=False)
+            k: nn.Parameter(torch.zeros(s, device=device))
             for k, s in shapes.items()
         })
     return nn.ModuleDict({k: _module_tree(v, device) for k, v in shapes.items()})
@@ -110,8 +132,8 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
 
 
 class ClairNet(nn.Module):
-    """The deterministic (calling) forward. Parameters keep the JAX layout
-    and carry no gradient: training comes with its own port."""
+    """The network, its parameters in the JAX layout. Calling runs it under
+    ``inference_mode``; training differentiates ``forward_logits``."""
 
     def __init__(self, config: ModelConfig = ModelConfig(), device=None):
         super().__init__()
@@ -132,10 +154,17 @@ class ClairNet(nn.Module):
         model.load_state_dict(params_from_jax(tree))
         return model
 
-    def forward_logits(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """(B, 33, 8, 4) float32 -> the four SELU-activated head outputs
-        (pre-softmax) in the compute dtype."""
+    def forward_logits(self, x: torch.Tensor, *, deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+        """(B, 33, 8, 4) pileup (float32, or the int16 of the training
+        feed) -> the four SELU-activated head outputs (pre-softmax) in the
+        compute dtype. ``deterministic=False`` is the training forward: each
+        dropout of the config whose rate is above 0 draws its mask from
+        ``generator`` (on x's device)."""
         config = self.config
+        if not deterministic and generator is None:
+            raise ValueError("the training forward needs a generator for dropout")
+        train = not deterministic
         dtype = COMPUTE_DTYPES[config.compute_dtype]
         p = {k: _tensor_tree(m) for k, m in self.named_children()}
         if dtype != torch.float32:
@@ -143,17 +172,28 @@ class ClairNet(nn.Module):
         b = x.shape[0]
         h = x.reshape(b, config.no_of_positions, config.feature_dim).to(dtype)
         h = bilstm_stream(p["lstm1"], h)
+        if train and config.lstm1_dropout_rate > 0:
+            h = dropout(generator, h, config.lstm1_dropout_rate)
         h = bilstm_stream(p["lstm2"], h)
+        if train and config.lstm2_dropout_rate > 0:
+            h = dropout(generator, h, config.lstm2_dropout_rate)
 
         # L3 slice dense: per feature column, time -> units; (B, U, F) is
         # flattened row-major to U*F, and the (F, U) bias is transposed
         l3 = torch.einsum("btf,ftu->buf", h, p["l3"]["w"])
         l3 = selu(l3 + p["l3"]["b"].T[None]).reshape(b, -1)
         l4 = selu(_dense(p["l4"], l3))
+        if train and config.l4_dropout_rate > 0:
+            l4 = alpha_dropout(generator, l4, config.l4_dropout_rate)
+
+        def stem(name):
+            s = selu(_dense(p[name], l4))
+            if train and config.l5_dropout_rate > 0:
+                s = alpha_dropout(generator, s, config.l5_dropout_rate)
+            return s
+
         # every head applies SELU before its softmax (trained-model contract)
-        return tuple(
-            selu(_dense(p[head], selu(_dense(p[stem], l4)))) for stem, head in _HEADS
-        )
+        return tuple(selu(_dense(p[head], stem(name))) for name, head in _HEADS)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """The four softmax probability tensors, always float32."""

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from clair_tpu.models import checkpoint as jax_ckpt
+from clair_tpu_torch.io import zstd
 from clair_tpu_torch.models import checkpoint as port_ckpt
 
 VENDORED = [
@@ -82,7 +83,7 @@ def test_same_bytes_from_numpy_and_from_torch_leaves(tmp_path):
     port_ckpt.save_checkpoint(paths[2], torch_tree, {"epoch": 1})
     blobs = [open(p, "rb").read() for p in paths]
     assert {b[:10] for b in blobs} == {b"CLTPUCKPT1"}
-    payloads = [port_ckpt._zstd_decompress(b[10:]) for b in blobs]
+    payloads = [zstd.decompress(b[10:]) for b in blobs]
     assert payloads[1] == payloads[0] and payloads[2] == payloads[0]
 
 

@@ -40,7 +40,8 @@ def _pileup(rs, n):
 
 def _both(params, x, config):
     want = [np.asarray(p) for p in jax_forward(params, x, config)]
-    got = [p.numpy() for p in ClairNet.from_jax(params, config)(torch.from_numpy(x))]
+    with torch.inference_mode():  # the parameters are trainable
+        got = [p.numpy() for p in ClairNet.from_jax(params, config)(torch.from_numpy(x))]
     return want, got
 
 
@@ -90,7 +91,8 @@ def test_bf16_forward_tracks_the_jax_kernel_path():
         np.testing.assert_allclose(g.sum(-1), 1.0, rtol=1e-3)
         np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
         np.testing.assert_allclose(g, w, rtol=0, atol=0.08)
-    got32 = ClairNet.from_jax(params, ModelConfig())(torch.from_numpy(x))
+    with torch.inference_mode():
+        got32 = ClairNet.from_jax(params, ModelConfig())(torch.from_numpy(x))
     agree = np.mean([(a.numpy().argmax(-1) == b.argmax(-1)).mean() for a, b in zip(got32, got)])
     assert agree >= 0.75
 
