@@ -8,28 +8,41 @@ Phases, each printing its results and seconds:
 
 1. the card (nvidia-smi name and power limit); no CUDA device -> exit 1
 2. build every kernel in clair_tpu_torch/csrc/ (one nvcc each, all at once)
-3. the forward kernel against its plain PyTorch version on the card
-4. the backward kernel against its plain PyTorch version, and against
-   torch.autograd of the plain forward, on the card
+3. the streaming forward kernel against its plain PyTorch version
+   3b. the resident train pair (use_pallas_train_bilstm) against its plain
+       versions and torch.autograd, and two backward runs bit for bit
+   3c. use_pallas_bilstm's recurrence kernel against its plain version
+   3d. the two-layer bilstm2 kernel against the two plain layers
+4. the streaming backward kernel against its plain PyTorch version, and
+   against torch.autograd of the plain forward, on the card
 5. the full-width forward of examples/ont_production.ckpt on the card
    against the plain forward on the CPU, float32, batch 512
 6. three full-width Adam steps of make_train_step on the card (kernels)
    against the same steps on the CPU (plain), float32, batch 512
+   6b. the same under use_pallas_train_bilstm (the train pair)
 7. the calling path: ``python -m clair_tpu_torch call_bam`` on a simulated
    ONT genome with examples/ont_synthetic.ckpt, in the default bfloat16 and
    in float32; recall and precision against the planted truth, the same
    decisions in both dtypes, and the kernels' launch counts in each run
+   7b. ``call_bam.call_bam`` with ``Predictor(params, ModelConfig(
+       use_pallas_bilstm=True, compute_dtype=d))`` on the same genome, in
+       bfloat16 and float32; the float32 decisions equal phase 7's
 8. the training path: ``python -m clair_tpu_torch train`` at batch 10,000 on
    a bin of 24,000 learnable rows written by the port, in the default
    bfloat16 and in float32; finite losses that fall, checkpoints that load,
    the evaluation report, and both kernels' launch counts in each run
+   8b. ``train_model`` under ``use_pallas_train_bilstm``, float32, on the
+       same bin: the same checks, only the train pair launching
 9. times (CUDA events after warm-up) beside the card's name and power limit
+   9b. the new kernels' times, and the train step under each training pair
+   9c. bilstm2 as a library call on the vendored checkpoint's two layers
 
-Each command of phases 7 and 8 runs in a process of its own, so the launch
-counts it reports start from 0 just before it and are read just after it.
-Any failed phase raises, so the script exits non-zero without the last
-line. The last two lines are a JSON summary of the kernels and the device
-line ``{"ok": true, "device": {...}}``. Nothing here imports JAX.
+Each run of phases 7, 7b, 8 and 8b runs in a process of its own, so the
+launch counts it reports start from 0 just before it and are read just
+after it; 9c sets bilstm2's count to 0 just before its call. Any failed
+phase raises, so the script exits non-zero without the last line. The last
+two lines are a JSON summary of the kernels and the device line
+``{"ok": true, "device": {...}}``. Nothing here imports JAX.
 """
 
 import dataclasses
@@ -59,7 +72,33 @@ KERNELS = {
         "source": "clair_tpu_torch/csrc/bilstm_stream_bwd.cu",
         "replaces": "clair_tpu/ops/pallas_bilstm_stream.py:80",
     },
+    "bilstm_train": {
+        "name": "bilstm_train_fwd",
+        "route": "cuda",
+        "source": "clair_tpu_torch/csrc/bilstm_train.cu",
+        "replaces": "clair_tpu/ops/pallas_bilstm_train.py:56",
+    },
+    "bilstm_train_backward": {
+        "name": "bilstm_train_bwd",
+        "route": "cuda",
+        "source": "clair_tpu_torch/csrc/bilstm_train.cu",
+        "replaces": "clair_tpu/ops/pallas_bilstm_train.py:84",
+    },
+    "bilstm_precomputed": {
+        "name": "bilstm_recurrence",
+        "route": "cuda",
+        "source": "clair_tpu_torch/csrc/bilstm.cu",
+        "replaces": "clair_tpu/ops/pallas_bilstm.py:36",
+    },
+    "bilstm2": {
+        "name": "bilstm2",
+        "route": "cuda",
+        "source": "clair_tpu_torch/csrc/bilstm2.cu",
+        "replaces": "clair_tpu/ops/pallas_bilstm2.py:43",
+    },
 }
+STREAM_PAIR = ("bilstm_stream", "bilstm_stream_backward")
+TRAIN_PAIR = ("bilstm_train", "bilstm_train_backward")
 # forward kernel vs plain on the card: float32 sums run in another order
 # over 33 steps; bf16 h is rounded to a 2**-8 step every step (h and c)
 F32_TOL, BF16_TOL = 1e-4, 2e-2
@@ -82,6 +121,51 @@ RECALL_FLOOR = PRECISION_FLOOR = 0.9
 TRAIN_ROWS, TRAIN_EPOCHS = 24_000, 2
 BWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 256, 128),
                   (13, 33, 256, 128), (8, 7, 16, 8))
+# the train pair at the training batch (10,000, the forward's 16-row tile)
+# and at 512 for both layers (its 4-row tile), a ragged batch (13, no
+# multiple of the 16-row backward tile) and a tiny odd geometry;
+# use_pallas_bilstm's kernel at the calling batch and a ragged
+# one; bilstm2 at the calling batch, a ragged one and the training batch
+TRAIN_GEOMETRIES = ((10000, 33, 32, 128), (10000, 33, 256, 128), (512, 33, 32, 128),
+                    (512, 33, 256, 128), (13, 33, 256, 128), (8, 7, 16, 8))
+PRECOMPUTED_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (13, 33, 32, 128),
+                          (13, 33, 256, 128))
+BILSTM2_BATCHES = (512, 13, 10000)
+
+# calling under use_pallas_bilstm, in a process of its own (phase 7b)
+CALL_SCRIPT = """
+import json, sys
+from clair_tpu.params import ModelConfig
+from clair_tpu.pipeline.call_bam import CallBamConfig, call_bam
+from clair_tpu_torch.cli import _kernel_counts
+from clair_tpu_torch.models.checkpoint import load_checkpoint
+from clair_tpu_torch.pipeline.call_var import Predictor
+bam, fasta, ckpt, out, dtype = sys.argv[1:]
+params, _ = load_checkpoint(ckpt)
+# the flags of phase 7's call_bam command: --ctgName chr1 --threshold 0.2
+config = CallBamConfig(bam_path=bam, fasta_path=fasta, contig="chr1", minimum_af=0.2)
+predictor = Predictor(params, ModelConfig(use_pallas_bilstm=True, compute_dtype=dtype))
+total = call_bam(config, predictor, output_path=out)
+print(f"[INFO] {total} candidate sites processed", file=sys.stderr)
+print(json.dumps({"kernel_launches": _kernel_counts()}), file=sys.stderr)
+"""
+# training under use_pallas_train_bilstm, in a process of its own (phase 8b)
+TRAIN_SCRIPT = """
+import json, logging, sys
+from clair_tpu.params import ModelConfig
+from clair_tpu_torch.cli import _kernel_counts
+from clair_tpu_torch.data.bins import load_bin
+from clair_tpu_torch.pipeline.train import TrainingConfig, train_model
+logging.basicConfig(format="%(message)s", level=logging.INFO)
+bin_fn, prefix, epochs = sys.argv[1], sys.argv[2], int(sys.argv[3])
+result = train_model(load_bin(bin_fn), TrainingConfig(
+    model=ModelConfig(use_pallas_train_bilstm=True), train_compute_dtype="float32",
+    output_prefix=prefix, max_epochs=epochs, hard_max_epochs=epochs))
+print(json.dumps({"kernel_launches": _kernel_counts(),
+                  "training_losses": result.training_losses,
+                  "validation_losses": result.validation_losses,
+                  "best_epoch": result.best_epoch}), file=sys.stderr)
+"""
 
 
 def card_line() -> str:
@@ -106,6 +190,16 @@ def cuda_ms(fn, iters=20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_counts():
+    from clair_tpu_torch.cli import _kernel_counts
+
+    return _kernel_counts()
+
+
+def launched_since(before):
+    return {k: v - before[k] for k, v in kernel_counts().items()}
 
 
 def lstm_params(rs, feat, hidden, device):
@@ -164,6 +258,126 @@ def check_kernel(dev):
             else:
                 assert err_h <= BF16_TOL and err_c <= BF16_TOL, (err_h, err_c)
     assert bilstm_stream.launches == before + calls, "the kernel did not launch"
+    return max_err
+
+
+def stacked_inputs(geometry, dev, seed):
+    """The train pair's inputs on the stacked layout: xs (T, 2B, F), w, u,
+    b, and a cotangent dh (T, 2B, H), from a seed."""
+    from clair_tpu_torch.models.bilstm import _stack_directions
+    from clair_tpu_torch.ops.bilstm_train import _stack_params
+
+    b, t, f, h = geometry
+    rs = np.random.RandomState(seed)
+    params = lstm_params(rs, f, h, dev)
+    xs = _stack_directions(torch.tensor(rs.randn(b, t, f), dtype=torch.float32, device=dev))
+    dh = torch.tensor(rs.randn(t, 2 * b, h), dtype=torch.float32, device=dev)
+    return (xs.contiguous(), *_stack_params(params), dh)
+
+
+def check_train_pair(dev):
+    """Phase 3b: the resident forward (h, c) and backward (dx, dW, dU, db)
+    kernels vs their plain versions on the same inputs, the backward also
+    vs torch.autograd.grad of the plain forward, and two backward runs bit
+    for bit (fixed-order partial sums, no atomics)."""
+    from clair_tpu_torch.ops.bilstm_train import (
+        bilstm_train_backward, bilstm_train_backward_reference, bilstm_train_forward,
+        bilstm_train_reference,
+    )
+
+    errs = {"bilstm_train": 0.0, "bilstm_train_backward": 0.0}
+    before = kernel_counts()
+    names = ("dx", "dw", "du", "db")
+    for geometry in TRAIN_GEOMETRIES:
+        xs, w, u, b, dh = stacked_inputs(geometry, dev, sum(geometry))
+        h_out, c_out = bilstm_train_forward(xs, w, u, b)
+        h_p, c_p = bilstm_train_reference(xs, w, u, b)
+        got = bilstm_train_backward(xs, w, u, b, h_out, c_out, dh)
+        again = bilstm_train_backward(xs, w, u, b, h_out, c_out, dh)
+        want = bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh)
+        leaves = [t_.detach().requires_grad_() for t_ in (xs, w, u, b)]
+        grads = torch.autograd.grad((bilstm_train_reference(*leaves)[0] * dh).sum(), leaves)
+        torch.cuda.synchronize()
+        err_h, err_c = ((h_out - h_p).abs().max().item(), (c_out - c_p).abs().max().item())
+        assert err_h <= F32_TOL and err_c <= F32_TOL, (geometry, err_h, err_c)
+        errs["bilstm_train"] = max(errs["bilstm_train"], err_h, err_c)
+        line = [f"max|dh| {err_h:.3e} max|dc| {err_c:.3e}"]
+        for name, g, g2, r, a in zip(names, got, again, want, grads):
+            assert g.shape == r.shape and torch.isfinite(g).all(), name
+            assert torch.equal(g, g2), f"{name}: two runs differ"
+            err, scale = (g - r).abs().max().item(), r.abs().max().item()
+            err_ag = (g - a).abs().max().item()
+            assert err <= BWD_REL_TOL * scale and err_ag <= BWD_REL_TOL * scale, (
+                geometry, name, err, err_ag, scale)
+            errs["bilstm_train_backward"] = max(errs["bilstm_train_backward"], err)
+            line.append(f"{name} {err:.2e}/{scale:.2e}")
+        print(f"  train pair vs plain {geometry}: " + ", ".join(line)
+              + "; autograd agrees; backward bit-identical over two runs")
+    launched = launched_since(before)
+    assert launched["bilstm_train"] == len(TRAIN_GEOMETRIES), launched
+    assert launched["bilstm_train_backward"] == 2 * len(TRAIN_GEOMETRIES), launched
+    return errs
+
+
+def precomputed_inputs(geometry, dev, p_dtype, x_dtype, seed):
+    """(xw, u) as use_pallas_bilstm's layer gives them to its kernel."""
+    from clair_tpu_torch.ops.bilstm import projections
+
+    b, t, f, h = geometry
+    rs = np.random.RandomState(seed)
+    params = {d: {k: v.to(p_dtype) for k, v in p.items()}
+              for d, p in lstm_params(rs, f, h, dev).items()}
+    x = torch.tensor(rs.randn(b, t, f), dtype=torch.float32, device=dev).to(x_dtype)
+    return projections(params, x)
+
+
+# (parameter dtype, input dtype) pairs the model gives use_pallas_bilstm's
+# layer: float32; lstm1 under bf16 (xw bf16); lstm2 under bf16 (xw float32)
+PRECOMPUTED_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                      (torch.bfloat16, torch.float32))
+
+
+def check_precomputed(dev):
+    """Phase 3c: the recurrence kernel vs its plain version on the same xw
+    and u, in each dtype pair; float32 output, within F32_TOL (both compute
+    in float32 from the same values)."""
+    from clair_tpu_torch.ops.bilstm import (
+        bilstm_precomputed, bilstm_recurrence, bilstm_recurrence_reference,
+    )
+
+    max_err = 0.0
+    before = bilstm_precomputed.launches
+    for geometry in PRECOMPUTED_GEOMETRIES:
+        for p_dtype, x_dtype in PRECOMPUTED_DTYPES:
+            xw, u = precomputed_inputs(geometry, dev, p_dtype, x_dtype, sum(geometry))
+            got, want = bilstm_recurrence(xw, u), bilstm_recurrence_reference(xw, u)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            assert got.dtype == torch.float32 and err <= F32_TOL, (geometry, err)
+            max_err = max(max_err, err)
+            print(f"  recurrence vs plain {geometry} xw {str(xw.dtype)[6:]} "
+                  f"u {str(u.dtype)[6:]}: max|dh| {err:.3e}")
+    assert bilstm_precomputed.launches == before + 3 * len(PRECOMPUTED_GEOMETRIES)
+    return max_err
+
+
+def check_bilstm2(dev):
+    """Phase 3d: bilstm2 vs the two plain layers, float32, within F32_TOL."""
+    from clair_tpu_torch.ops.bilstm2 import bilstm2, bilstm2_reference
+
+    max_err = 0.0
+    before = bilstm2.launches
+    for batch in BILSTM2_BATCHES:
+        rs = np.random.RandomState(batch)
+        p1, p2 = lstm_params(rs, 32, 128, dev), lstm_params(rs, 256, 128, dev)
+        x = torch.tensor(rs.randn(batch, 33, 32), dtype=torch.float32, device=dev)
+        got, want = bilstm2(p1, p2, x), bilstm2_reference(p1, p2, x)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert got.shape == (batch, 33, 256) and err <= F32_TOL, (batch, err)
+        max_err = max(max_err, err)
+        print(f"  bilstm2 vs plain B={batch}: max|dh| {err:.3e}")
+    assert bilstm2.launches == before + len(BILSTM2_BATCHES)
     return max_err
 
 
@@ -261,19 +475,20 @@ def pileup_batch(rs, n):
     return x, y
 
 
-def check_train_step(params):
-    """Phase 6: three full-width Adam steps, card (kernels) vs CPU (plain),
-    float32, every dropout rate 0, batch 512."""
+def check_train_step(params, pair=STREAM_PAIR, **flags):
+    """Phases 6 and 6b: three full-width Adam steps, card (kernels) vs CPU
+    (plain), float32, every dropout rate 0, batch 512, with the kernel pair
+    the ModelConfig ``flags`` select; only that pair launches, 6 + 6
+    times."""
     from clair_tpu.params import ModelConfig
     from clair_tpu_torch.models.clair import ClairNet, params_to_jax
-    from clair_tpu_torch.ops.bilstm_stream import bilstm_stream, bilstm_stream_backward
     from clair_tpu_torch.parallel.sharding import make_optimizer, make_train_step
 
     config = dataclasses.replace(ModelConfig(), lstm2_dropout_rate=0.0, l4_dropout_rate=0.0,
-                                 l5_dropout_rate=0.0)
+                                 l5_dropout_rate=0.0, **flags)
     x, y = pileup_batch(np.random.RandomState(11), 512)
     runs = {}
-    before = (bilstm_stream.launches, bilstm_stream_backward.launches)
+    before = kernel_counts()
     for device in ("cuda", "cpu"):
         model = ClairNet.from_jax(params, config, device)
         step = make_train_step(model, make_optimizer(dict(model.named_parameters()), "Adam", 1e-3))
@@ -281,12 +496,13 @@ def check_train_step(params):
         generator = torch.Generator(device=device)
         losses = [step(xd, yd, generator, 0.005)[0].item() for _ in range(3)]
         runs[device] = (losses, params_to_jax(model.state_dict()))
-    assert (bilstm_stream.launches, bilstm_stream_backward.launches) == (
-        before[0] + 6, before[1] + 6), "a kernel did not launch"
+    launched = launched_since(before)
+    assert launched == {k: (6 if k in pair else 0) for k in launched}, launched
     card, cpu = runs["cuda"][0], runs["cpu"][0]
     assert all(math.isfinite(v) for v in card)
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    print(f"  train step card vs CPU, losses {card} vs {cpu}, max rel diff {rel:.2e}")
+    print(f"  train step card vs CPU {flags or ''}, losses {card} vs {cpu}, "
+          f"max rel diff {rel:.2e}; launches {launched}")
     assert rel <= STEP_RTOL, (card, cpu)
 
     def leaves(tree, prefix=""):
@@ -315,33 +531,53 @@ def simulate_genome(workdir: Path):
     return fasta, bam, {v.position: (v.ref, v.alt) for v in variants}
 
 
-def run_port(args, timeout):
-    """One run of the port's CLI in a process of its own; its kernel launch
-    counts start from 0 there and are reported on its last stderr line."""
-    cmd = [sys.executable, "-m", "clair_tpu_torch", *args]
+def run_process(args, timeout):
+    """``python <args>`` in a process of its own; its kernel launch counts
+    start from 0 there and are reported on its last stderr line."""
+    cmd = [sys.executable, *args]
     started = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - started
     if proc.returncode != 0:
-        raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"{' '.join(cmd[:3])} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
     report = json.loads(proc.stderr.strip().splitlines()[-1])
     return report, wall, proc.stderr
 
 
-def call_bam(fasta, bam, out, dtype_flags):
-    report, wall, stderr = run_port(
-        ["call_bam", "--bam_fn", bam, "--ref_fn", fasta,
-         "--chkpnt_fn", str(ROOT / "examples" / "ont_synthetic.ckpt"),
-         "--ctgName", "chr1", "--threshold", "0.2", "--call_fn", out, *dtype_flags], 500)
+def run_port(args, timeout):
+    """One run of the port's CLI in a process of its own."""
+    return run_process(["-m", "clair_tpu_torch", *args], timeout)
+
+
+def calls_of(out, report, wall, stderr):
     sites = [line for line in stderr.splitlines() if "candidate sites processed" in line]
     rows = [r.split("\t") for r in open(out) if not r.startswith("#")]
     return rows, report["kernel_launches"], wall, sites[-1] if sites else ""
+
+
+def call_bam(fasta, bam, out, dtype_flags):
+    return calls_of(out, *run_port(
+        ["call_bam", "--bam_fn", bam, "--ref_fn", fasta,
+         "--chkpnt_fn", str(ROOT / "examples" / "ont_synthetic.ckpt"),
+         "--ctgName", "chr1", "--threshold", "0.2", "--call_fn", out, *dtype_flags], 500))
+
+
+def call_bam_precomputed(fasta, bam, out, dtype):
+    """Phase 7b, one run: call_bam.call_bam with use_pallas_bilstm."""
+    return calls_of(out, *run_process(
+        ["-c", CALL_SCRIPT, bam, fasta, str(ROOT / "examples" / "ont_synthetic.ckpt"), out,
+         dtype], 500))
 
 
 def score(rows, truth):
     called = {int(r[1]): (r[3], r[4]) for r in rows}
     tp = len(set(truth) & set(called))
     return tp / len(truth), tp / max(len(called), 1)
+
+
+def decisions(rows):
+    """(CHROM, POS, REF, ALT, GT) of each VCF row."""
+    return [(r[0], r[1], r[3], r[4], r[9].split(":")[0]) for r in rows]
 
 
 def write_training_bin(path: Path):
@@ -370,13 +606,12 @@ def write_training_bin(path: Path):
           f"{path.stat().st_size / 1e6:.1f} MB; system liblz4 found: {lz4.available()}")
 
 
-def train(bin_fn: Path, prefix: Path, dtype_flags):
-    """Phase 8, one run: the train command, then its checks."""
+def train(prefix: Path, run, pair=STREAM_PAIR):
+    """Phases 8 and 8b, one run: ``run()`` trains into ``prefix`` in a
+    process of its own; then its checks. Only the kernel ``pair`` launches."""
     from clair_tpu_torch.models.checkpoint import checkpoint_path, load_checkpoint
 
-    report, wall, stderr = run_port(
-        ["train", "--bin_fn", str(bin_fn), "--ochk_prefix", str(prefix),
-         "--maxEpoch", str(TRAIN_EPOCHS), *dtype_flags], 600)
+    report, wall, stderr = run()
     val = [v for v, _ in report["validation_losses"]]
     trn = [v for v, _ in report["training_losses"]]
     assert len(val) == TRAIN_EPOCHS and all(math.isfinite(v) for v in val + trn), report
@@ -386,20 +621,20 @@ def train(bin_fn: Path, prefix: Path, dtype_flags):
         assert extra["epoch"] == epoch and params["l3"]["w"].shape == (256, 33, 30)
     assert "[INFO] Evaluation on gt21:" in stderr and "gt21 all/top1/top2" in stderr
     launches = report["kernel_launches"]
-    assert all(launches[k] > 0 for k in KERNELS), launches
+    assert all((launches[k] > 0) == (k in pair) for k in KERNELS), launches
     top = [line for line in stderr.splitlines() if "gt21 all/top1/top2" in line][-1]
     epochs = [line for line in stderr.splitlines() if "Epoch time elapsed" in line]
     return report, wall, top, epochs
 
 
-def train_step_times(params, dev, dtype):
+def train_step_times(params, dev, dtype, **flags):
     """ms per full-width train step at batch 10,000 (host clock around
     synchronized steps, after a warm-up step)."""
     from clair_tpu.params import TRAIN_BATCH_SIZE, ModelConfig
     from clair_tpu_torch.models.clair import ClairNet
     from clair_tpu_torch.parallel.sharding import make_optimizer, make_train_step
 
-    model = ClairNet.from_jax(params, ModelConfig(compute_dtype=dtype), dev)
+    model = ClairNet.from_jax(params, ModelConfig(compute_dtype=dtype, **flags), dev)
     step = make_train_step(model, make_optimizer(dict(model.named_parameters()), "Adam", 1e-3))
     x, y = pileup_batch(np.random.RandomState(14), TRAIN_BATCH_SIZE)
     xd = torch.from_numpy(x.astype(np.int16)).to(dev)
@@ -414,6 +649,91 @@ def train_step_times(params, dev, dtype):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - started) / iters * 1e3
     return ms, TRAIN_BATCH_SIZE / ms * 1e3
+
+
+def new_kernel_times(params, dev, ms, plain_ms):
+    """Phase 9b: the new kernels and their plain versions at the paths'
+    shapes (CUDA events after a warm-up), and the train step at batch
+    10,000 under each training pair. Fills ``ms`` and ``plain_ms`` with the
+    JSON line's sums: the train pair per layer at B = 10,000, the
+    recurrence per layer at B = 512 in bfloat16 (the calling default's
+    dtypes), bilstm2 at B = 512."""
+    from clair_tpu_torch.ops.bilstm import (
+        bilstm_recurrence, bilstm_recurrence_reference,
+    )
+    from clair_tpu_torch.ops.bilstm2 import bilstm2, bilstm2_reference
+    from clair_tpu_torch.ops.bilstm_train import (
+        bilstm_train_backward, bilstm_train_backward_reference, bilstm_train_forward,
+        bilstm_train_reference,
+    )
+
+    for layer, feat in (("lstm1", 32), ("lstm2", 256)):
+        xs, w, u, b, dh = stacked_inputs((10000, 33, feat, 128), dev, feat + 5)
+        h_out, c_out = bilstm_train_forward(xs, w, u, b)
+        need_dx = layer == "lstm2"  # lstm1's input takes no gradient
+        times = {
+            "bilstm_train": (cuda_ms(lambda: bilstm_train_forward(xs, w, u, b), 5),
+                             cuda_ms(lambda: bilstm_train_reference(xs, w, u, b), 5)),
+            "bilstm_train_backward": (
+                cuda_ms(lambda: bilstm_train_backward(xs, w, u, b, h_out, c_out, dh,
+                                                      need_dx=need_dx), 5),
+                cuda_ms(lambda: bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh,
+                                                                need_dx=need_dx), 5)),
+        }
+        for name, (k, pl) in times.items():
+            print(f"  {name} {layer} B=10000 f32: kernel {k:.4f} ms, plain {pl:.4f} ms")
+            ms[name] += k
+            plain_ms[name] += pl
+        geometry = (512, 33, feat, 128)
+        for p_dtype, x_dtype in PRECOMPUTED_DTYPES:
+            if (layer == "lstm1") != (x_dtype == p_dtype):
+                continue  # lstm1 takes x in the compute dtype, lstm2 float32 h
+            xw, u16 = precomputed_inputs(geometry, dev, p_dtype, x_dtype, feat + 6)
+            k = cuda_ms(lambda: bilstm_recurrence(xw, u16))
+            pl = cuda_ms(lambda: bilstm_recurrence_reference(xw, u16))
+            print(f"  recurrence {layer} B=512 xw {str(xw.dtype)[6:]} u {str(u16.dtype)[6:]}: "
+                  f"kernel {k:.4f} ms, plain {pl:.4f} ms")
+            if p_dtype == torch.bfloat16:
+                ms["bilstm_precomputed"] += k
+                plain_ms["bilstm_precomputed"] += pl
+    rs = np.random.RandomState(9)
+    p1, p2 = lstm_params(rs, 32, 128, dev), lstm_params(rs, 256, 128, dev)
+    x = torch.tensor(rs.randn(512, 33, 32), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        ms["bilstm2"] = cuda_ms(lambda: bilstm2(p1, p2, x))
+        plain_ms["bilstm2"] = cuda_ms(lambda: bilstm2_reference(p1, p2, x))
+    print(f"  bilstm2 B=512 f32: kernel {ms['bilstm2']:.4f} ms, plain {plain_ms['bilstm2']:.4f} ms")
+    for name, flags in (("streaming pair", {}),
+                        ("train pair", {"use_pallas_train_bilstm": True})):
+        step_ms, rate = train_step_times(params, dev, "float32", **flags)
+        print(f"  train step B=10000 float32, {name}: {step_ms:.2f} ms, {rate:.0f} samples/s "
+              f"(host clock, mean of 5 synchronized steps)")
+
+
+def bilstm2_library_call(params, dev):
+    """Phase 9c: bilstm2 as a library user calls it, on the vendored
+    checkpoint's two BiLSTM layers and a calling batch, against the model's
+    two streaming layers in float32; its count set to 0 just before."""
+    from clair_tpu_torch.ops.bilstm2 import bilstm2
+    from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
+    from clair_tpu_torch.pipeline.call_var import _device_input
+
+    layers = [{d: {k: torch.from_numpy(np.array(v)).to(dev) for k, v in p.items()}
+               for d, p in params[name].items()} for name in ("lstm1", "lstm2")]
+    x = torch.from_numpy(np.random.RandomState(10).randint(0, 40, (512, 33, 8, 4))
+                         .astype(np.uint8)).to(dev)
+    x = _device_input(x).reshape(512, 33, 32)
+    bilstm2.launches = 0
+    with torch.inference_mode():
+        out = bilstm2(*layers, x)
+    launches = bilstm2.launches
+    with torch.inference_mode():
+        want = bilstm_stream(layers[1], bilstm_stream(layers[0], x))
+    err = (out - want).abs().max().item()
+    print(f"  bilstm2 on ont_production.ckpt's layers, B=512: launches {launches}, "
+          f"max|d| vs the streaming layers {err:.3e}")
+    assert launches == 1 and torch.isfinite(out).all() and err <= F32_TOL, (launches, err)
+    return launches
 
 
 def main():
@@ -442,6 +762,18 @@ def main():
     phase("3 forward kernel vs plain", t)
 
     t = time.perf_counter()
+    max_err.update(check_train_pair(dev))
+    phase("3b train pair vs plain", t)
+
+    t = time.perf_counter()
+    max_err["bilstm_precomputed"] = check_precomputed(dev)
+    phase("3c precomputed forward vs plain", t)
+
+    t = time.perf_counter()
+    max_err["bilstm2"] = check_bilstm2(dev)
+    phase("3d bilstm2 vs plain", t)
+
+    t = time.perf_counter()
     max_err["bilstm_stream_backward"] = check_backward_kernel(dev)
     phase("4 backward kernel vs plain", t)
 
@@ -452,6 +784,10 @@ def main():
     t = time.perf_counter()
     check_train_step(params)
     phase("6 full-width train step", t)
+
+    t = time.perf_counter()
+    check_train_step(params, TRAIN_PAIR, use_pallas_train_bilstm=True)
+    phase("6b full-width train step, use_pallas_train_bilstm", t)
 
     t = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
@@ -468,10 +804,31 @@ def main():
             assert recall >= RECALL_FLOOR and precision >= PRECISION_FLOOR, (recall, precision)
             assert launches["bilstm_stream"] > 0, launches
             runs[dtype] = (rows, launches, wall, sites)
-    decisions = {d: [(r[0], r[1], r[3], r[4], r[9].split(":")[0]) for r in runs[d][0]] for d in runs}
-    assert decisions["bfloat16"] == decisions["float32"], "bf16 and f32 decisions differ"
-    print("  bfloat16 and float32 decisions (CHROM, POS, REF, ALT, GT) identical")
-    phase("7 calling path", t)
+        assert decisions(runs["bfloat16"][0]) == decisions(runs["float32"][0]), \
+            "bf16 and f32 decisions differ"
+        print("  bfloat16 and float32 decisions (CHROM, POS, REF, ALT, GT) identical")
+        phase("7 calling path", t)
+
+        t = time.perf_counter()
+        precomputed_runs = {}
+        for dtype in ("bfloat16", "float32"):
+            rows, launches, wall, sites = call_bam_precomputed(
+                fasta, bam, str(Path(tmp) / f"precomputed_{dtype}.vcf"), dtype)
+            recall, precision = score(rows, truth)
+            print(f"  call_bam use_pallas_bilstm {dtype}: {len(rows)} calls, recall "
+                  f"{recall:.4f}, precision {precision:.4f}, kernel launches {launches}, "
+                  f"wall {wall:.2f} s; {sites}")
+            assert recall >= RECALL_FLOOR and precision >= PRECISION_FLOOR, (recall, precision)
+            assert launches["bilstm_precomputed"] > 0 and launches["bilstm_stream"] == 0, launches
+            precomputed_runs[dtype] = (rows, launches, wall, sites)
+    streaming = decisions(runs["float32"][0])
+    assert decisions(precomputed_runs["float32"][0]) == streaming, \
+        "use_pallas_bilstm f32 decisions differ from the streaming f32 run"
+    print("  use_pallas_bilstm float32 decisions identical to the streaming float32 run")
+    differ = sorted(set(decisions(precomputed_runs["bfloat16"][0])) ^ set(streaming))
+    print(f"  use_pallas_bilstm bfloat16 vs streaming float32: {len(differ)} decisions "
+          f"differ {differ}")
+    phase("7b calling path, use_pallas_bilstm", t)
 
     t = time.perf_counter()
     trains = {}
@@ -479,13 +836,27 @@ def main():
         bin_fn = Path(tmp) / "train.bin"
         write_training_bin(bin_fn)
         for dtype, flags in (("bfloat16", []), ("float32", ["--train_compute_dtype", "float32"])):
-            report, wall, top, epochs = train(bin_fn, Path(tmp) / f"model_{dtype}", flags)
+            prefix = Path(tmp) / f"model_{dtype}"
+            report, wall, top, epochs = train(prefix, lambda: run_port(
+                ["train", "--bin_fn", str(bin_fn), "--ochk_prefix", str(prefix),
+                 "--maxEpoch", str(TRAIN_EPOCHS), *flags], 600))
             print(f"  train {dtype}: validation loss sums {report['validation_losses']}, "
                   f"training loss sums {report['training_losses']}, best epoch "
                   f"{report['best_epoch']}, kernel launches {report['kernel_launches']}, "
                   f"wall {wall:.2f} s (process start to exit); {top}; {epochs}")
             trains[dtype] = (report, wall)
-    phase("8 training path", t)
+        phase("8 training path", t)
+
+        t = time.perf_counter()
+        prefix = Path(tmp) / "model_train_pair"
+        report, wall, top, epochs = train(prefix, lambda: run_process(
+            ["-c", TRAIN_SCRIPT, str(bin_fn), str(prefix), str(TRAIN_EPOCHS)], 600), TRAIN_PAIR)
+        print(f"  train_model use_pallas_train_bilstm float32: validation loss sums "
+              f"{report['validation_losses']}, training loss sums {report['training_losses']}, "
+              f"best epoch {report['best_epoch']}, kernel launches {report['kernel_launches']}, "
+              f"wall {wall:.2f} s (process start to exit); {top}; {epochs}")
+        trains["float32, use_pallas_train_bilstm"] = (report, wall)
+    phase("8b training path, use_pallas_train_bilstm", t)
 
     t = time.perf_counter()
     from clair_tpu.params import ModelConfig
@@ -548,9 +919,21 @@ def main():
               f"{TRAIN_EPOCHS} epochs of {TRAIN_ROWS} rows")
     phase("9 times", t)
 
+    t = time.perf_counter()
+    new_kernel_times(params, dev, ms, plain_ms)
+    phase("9b times of the new kernels", t)
+
+    t = time.perf_counter()
+    library_launches = bilstm2_library_call(params, dev)
+    phase("9c bilstm2 as a library call", t)
+
     assert "jax" not in sys.modules
     print(f"card: {card}")
-    launches = trains["bfloat16"][0]["kernel_launches"]
+    # each kernel's launches in the run of the path that carries it
+    launches = {**{k: trains["bfloat16"][0]["kernel_launches"][k] for k in STREAM_PAIR},
+                **{k: trains["float32, use_pallas_train_bilstm"][0]["kernel_launches"][k] for k in TRAIN_PAIR},
+                "bilstm_precomputed": precomputed_runs["bfloat16"][1]["bilstm_precomputed"],
+                "bilstm2": library_launches}
     print(json.dumps({"kernels": [dict(
         KERNELS[k], launches=launches[k], max_abs_err=max_err[k], ms=ms[k],
         plain_ms=plain_ms[k]) for k in KERNELS]}))

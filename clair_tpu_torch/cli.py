@@ -9,8 +9,9 @@ command, so the runner drives the port's CUDA ``Predictor``.
 
 The training commands (``train``, ``train_clr``, ``evaluate``) take the JAX
 package's flags but run the port's own loop (``pipeline/train.py``) on one
-CUDA device; the flags of what is not ported yet (multi-GPU, profiling, the
-other BiLSTM kernels) raise NotImplementedError.
+CUDA device; the flags of what is not ported yet (multi-GPU, profiling)
+raise NotImplementedError, as does ``--no_stream_bilstm``, whose lax.scan
+BiLSTM the port keeps off the card.
 
 After a command, one JSON line on stderr reports how many times each kernel
 of the port launched during it; after a training command it also carries
@@ -59,10 +60,15 @@ def _port_predictor():
 
 
 def _kernel_counts():
+    """Each kernel wrapper of the port and its launches so far."""
+    from clair_tpu_torch.ops.bilstm import bilstm_precomputed
+    from clair_tpu_torch.ops.bilstm2 import bilstm2
     from clair_tpu_torch.ops.bilstm_stream import bilstm_stream, bilstm_stream_backward
+    from clair_tpu_torch.ops.bilstm_train import bilstm_train, bilstm_train_backward
 
-    return {"bilstm_stream": bilstm_stream.launches,
-            "bilstm_stream_backward": bilstm_stream_backward.launches}
+    wrappers = (bilstm_stream, bilstm_stream_backward, bilstm_train, bilstm_train_backward,
+                bilstm_precomputed, bilstm2)
+    return {fn.__name__: fn.launches for fn in wrappers}
 
 
 @contextlib.contextmanager
@@ -130,12 +136,18 @@ def _refuse_unported_training_flags(args):
          "Queue 1 item 6"),
         (args.profile_dir is not None, "--profile_dir: a profiler trace of training",
          "Queue 1 item 5"),
-        (args.no_stream_bilstm, "--no_stream_bilstm: the BiLSTM kernels other than "
-         "the streaming pair", "Queue 2 items 2-4"),
     )
     for given, what, item in refused:
         if given:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+    if args.no_stream_bilstm:
+        # the command line builds a bare ModelConfig, so the JAX flag falls
+        # back to the lax.scan BiLSTM there
+        raise NotImplementedError(
+            "--no_stream_bilstm selects the JAX package's lax.scan BiLSTM, which in the "
+            "port is the plain PyTorch version: it serves CPU tensors and is kept off "
+            "the card (ROADMAP, the kernel rule). The other kernels are selected from "
+            "Python by ModelConfig flags (use_pallas_train_bilstm, use_pallas_bilstm)")
 
 
 def cmd_train(argv, schedule="adaptive", device="cuda"):

@@ -42,8 +42,7 @@
 //   current ones are multiplied, from two shared buffers.
 // Float32 FMA throughout; no tensor cores (wgmma), TMA or cp.async yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "lstm_cell.cuh"
 
 namespace {
 
@@ -51,24 +50,13 @@ namespace {
 // 8 rows ran 3-10% faster at B = 10,000 and 40-70% slower at B = 512
 constexpr int kRows = 4;
 // the two product kernels: 256 threads each owning an 8 x 8 register tile,
-// kDepth rows of the reduction per stage; weight sums in tiles of kWA
-// columns of A by kWG gates, dx in tiles of kDX rows by kDX features
+// kDepth (lstm_cell.cuh) rows of the reduction per stage; weight sums in
+// tiles of kWA columns of A by kWG gates, dx in tiles of kDX rows by kDX
+// features
 constexpr int kThreads = 256;
-constexpr int kDepth = 8;
 constexpr int kWA = 64;
 constexpr int kWG = 256;
 constexpr int kDX = 128;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 // (a) The reverse sweep. x: (batch, t_len, feat); w: (2, feat, 4H);
 // u: (2, H, 4H); ut: (2, 4H, H), u transposed; b: (2, 4H) float32;
@@ -248,34 +236,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
     const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
     const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
     return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// One stage of an 8 x 8 register-tiled product: acc[i][j] += a[i] * b[j]
-// over the kDepth rows of two shared tiles (row pitches PA, PB). Thread
-// (ta, tb) owns columns ta*4..+3 and HA + ta*4..+3 of a_s, and tb*4..+3 and
-// HB + tb*4..+3 of b_s: each read is a float4, and the lanes of a warp read
-// one broadcast line or consecutive lines, without bank conflicts.
-template <int HA, int HB, int PA, int PB>
-__device__ __forceinline__ void fma_stage(const float (*a_s)[PA], const float (*b_s)[PB],
-                                          int ta, int tb, float (&acc)[8][8]) {
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-        const float4 a_lo = *reinterpret_cast<const float4*>(&a_s[kk][ta * 4]);
-        const float4 a_hi = *reinterpret_cast<const float4*>(&a_s[kk][HA + ta * 4]);
-        const float4 b_lo = *reinterpret_cast<const float4*>(&b_s[kk][tb * 4]);
-        const float4 b_hi = *reinterpret_cast<const float4*>(&b_s[kk][HB + tb * 4]);
-        const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-        const float bv[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-}
-
-// the column an 8 x 8 tile's index i (or j) stands for: 4 from each half
-__device__ __forceinline__ int tile_col(int t, int i, int half) {
-    return i < 4 ? t * 4 + i : half + t * 4 + (i - 4);
 }
 
 // (b) Weight sums. partial[split][dir] is (F + H + 1) x 4H float32: row a
@@ -470,9 +430,7 @@ cudaError_t launch(const void* x, const void* w, const void* u, const void* ut, 
                    int splits, int rows_per_split, cudaStream_t stream) {
     const size_t smem = sizeof(float) * kRows * (feat + 6 * hidden);
     if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            bilstm_bwd_sweep<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+        const cudaError_t err = allow_dynamic_smem(bilstm_bwd_sweep<T>, smem);
         if (err != cudaSuccess) return err;
     }
     bilstm_bwd_sweep<T><<<dim3((batch + kRows - 1) / kRows, 2), dim3(hidden), smem, stream>>>(

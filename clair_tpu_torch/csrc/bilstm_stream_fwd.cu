@@ -28,25 +28,13 @@
 // - The input projection x_t.W happens inside the kernel, as in the TPU body.
 // Tensor cores (wgmma), TMA and a shared-memory U are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "lstm_cell.cuh"
 
 namespace {
 
 // batch rows per block: 4 measured fastest of 1, 2, 4, 8 and 16 at batch 512
 // on an H100 (more blocks in flight against fewer rows to share each W/U load)
 constexpr int kRows = 4;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
 
 // x: (batch, t_len, feat); w: (2, feat, 4H); u: (2, H, 4H); b: (2, 4H) float32.
 // h_out: (batch, t_len, 2H) in T; c_out: the same shape in float32, or null.
@@ -161,9 +149,7 @@ cudaError_t launch(const void* x, const void* w, const void* u, const void* b,
     const dim3 block(hidden);
     const size_t smem = sizeof(float) * kRows * (feat + hidden);
     if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            bilstm_stream_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
+        const cudaError_t err = allow_dynamic_smem(bilstm_stream_fwd_kernel<T>, smem);
         if (err != cudaSuccess) return err;
     }
     bilstm_stream_fwd_kernel<T><<<grid, block, smem, stream>>>(

@@ -3,7 +3,7 @@ clair_tpu/models/clair.py).
 
   (B, 33, 8, 4) pileup tensor
     -> flatten base/channel axes -> (B, 33, 32)
-    -> BiLSTM(128) -> BiLSTM(128)            ops/bilstm_stream.py (CUDA kernels)
+    -> BiLSTM(128) -> BiLSTM(128)            CUDA kernels, chosen by the config
        (training: dropout 0.5 after the second)
     -> L3 slice dense: einsum btf,ftu->buf, flattened row-major to U*F
     -> L4 dense(192) + SELU (training: alpha-dropout 0.5)
@@ -16,11 +16,21 @@ the JAX pytree's paths joined with dots (``lstm1.fw.w``, ``l3.b``,
 across unchanged. They are trainable float32 masters; under a reduced
 compute dtype every parameter is cast at use, as the JAX forward does, and
 the gradient flows back through the cast. Softmax runs in float32.
+
+The BiLSTM layer is chosen as the JAX forward chooses it (clair.py:117-141),
+without looking at the backend: ``use_pallas_bilstm`` (ops/bilstm.py, forward
+only), else ``use_pallas_stream_bilstm`` (ops/bilstm_stream.py), else
+``use_pallas_train_bilstm`` (ops/bilstm_train.py, float32 only), else the
+streaming pair, the port's default. ``use_pallas_bilstm``'s layer returns
+float32 whatever the compute dtype, so under bfloat16 everything after
+lstm1 runs in float32 on bf16-rounded weights, as JAX promotes it there;
+torch does not promote mixed matmul operands, so the products cast to the
+promoted dtype explicitly.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +40,9 @@ from clair_tpu.params import ModelConfig
 from clair_tpu_torch.models.layers import (
     alpha_dropout, dropout, glorot_uniform, he_fan_in, selu,
 )
+from clair_tpu_torch.ops.bilstm import bilstm_precomputed, promoted
 from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
+from clair_tpu_torch.ops.bilstm_train import bilstm_train
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (stem, head) pairs in output order: gt21, genotype, indel length 1 and 2
@@ -139,11 +151,7 @@ class ClairNet(nn.Module):
         super().__init__()
         if config.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {config.compute_dtype!r} not in {sorted(COMPUTE_DTYPES)}")
-        if config.use_pallas_bilstm or config.use_pallas_train_bilstm:
-            raise NotImplementedError(
-                "use_pallas_bilstm / use_pallas_train_bilstm select kernels "
-                "not yet ported; the port runs the streaming BiLSTM kernel"
-            )
+        self.bilstm = select_bilstm(config)
         self.config = config
         for name, shapes in param_shapes(config).items():
             self.add_module(name, _module_tree(shapes, device))
@@ -171,16 +179,16 @@ class ClairNet(nn.Module):
             p = _map_tree(lambda t: t.to(dtype), p)
         b = x.shape[0]
         h = x.reshape(b, config.no_of_positions, config.feature_dim).to(dtype)
-        h = bilstm_stream(p["lstm1"], h)
+        h = self.bilstm(p["lstm1"], h)
         if train and config.lstm1_dropout_rate > 0:
             h = dropout(generator, h, config.lstm1_dropout_rate)
-        h = bilstm_stream(p["lstm2"], h)
+        h = self.bilstm(p["lstm2"], h)
         if train and config.lstm2_dropout_rate > 0:
             h = dropout(generator, h, config.lstm2_dropout_rate)
 
         # L3 slice dense: per feature column, time -> units; (B, U, F) is
         # flattened row-major to U*F, and the (F, U) bias is transposed
-        l3 = torch.einsum("btf,ftu->buf", h, p["l3"]["w"])
+        l3 = torch.einsum("btf,ftu->buf", *promoted(h, p["l3"]["w"]))
         l3 = selu(l3 + p["l3"]["b"].T[None]).reshape(b, -1)
         l4 = selu(_dense(p["l4"], l3))
         if train and config.l4_dropout_rate > 0:
@@ -201,5 +209,26 @@ class ClairNet(nn.Module):
 
 
 def _dense(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"] + p["b"]
+    x, w = promoted(x, p["w"])
+    return x @ w + p["b"]
+
+
+def select_bilstm(config: ModelConfig) -> Callable:
+    """The BiLSTM layer ``config`` selects, in the JAX forward's order
+    (clair.py:117-141); the streaming pair when no flag is set. Raises
+    ValueError for ``use_pallas_train_bilstm`` under a compute dtype other
+    than float32, on either device (the CPU path stands for the card's)."""
+    if config.use_pallas_bilstm:
+        return bilstm_precomputed
+    if config.use_pallas_stream_bilstm:
+        return bilstm_stream
+    if config.use_pallas_train_bilstm:
+        if config.compute_dtype != "float32":
+            raise ValueError(
+                "use_pallas_train_bilstm is float32-only (the kernel "
+                "computes and returns f32, which would silently defeat "
+                f"compute_dtype={config.compute_dtype}); unset one of them"
+            )
+        return bilstm_train
+    return bilstm_stream
 

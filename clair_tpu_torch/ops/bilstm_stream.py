@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from clair_tpu_torch.models.bilstm import bilstm_with_cell
+from clair_tpu_torch.ops.build import launch, on_cuda
 
 _FWD_KERNEL = "bilstm_stream_fwd"
 _BWD_KERNEL = "bilstm_stream_bwd"
@@ -127,19 +128,8 @@ def _unstacked(w, u, b) -> Dict:
     return {d: {"w": w[i], "u": u[i], "b": b[i]} for i, d in enumerate(("fw", "bw"))}
 
 
-def _load(kernel: str, symbol: str, argtypes):
-    from clair_tpu_torch.ops import build
-
-    fn = getattr(build.load(kernel), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    return fn
-
-
-# every pointer and the stream as c_void_p: a default int argument would cut
-# a 64-bit pointer to 32 bits
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> None:
@@ -160,19 +150,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _on_cuda(x: torch.Tensor, name: str) -> bool:
-    """False for a CPU tensor (the plain version), True for a CUDA tensor
-    (the kernel); any other device raises."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {x.device}")
-    return True
-
-
 def _forward(x, w, u, b, with_cell: bool):
     """The forward on stacked parameters: (h_out, c_out or None)."""
-    if not _on_cuda(x, "bilstm_stream"):
+    if not on_cuda(x, "bilstm_stream"):
         h_out, c_out = bilstm_stream_reference(_unstacked(w, u, b), x)
         return h_out, (c_out if with_cell else None)
     _check(x, w, u, b)
@@ -183,15 +163,10 @@ def _forward(x, w, u, b, with_cell: bool):
         torch.empty((batch, t_len, 2 * hidden), dtype=torch.float32, device=x.device)
         if with_cell else None
     )
-    fn = _load(_FWD_KERNEL, "clair_bilstm_stream_fwd", _FWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(),
-                 h_out.data_ptr(), c_out.data_ptr() if with_cell else None,
-                 batch, t_len, feat, hidden, int(x.dtype == torch.bfloat16),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"{_FWD_KERNEL} launch failed: CUDA error {err}")
+    launch(_FWD_KERNEL, "clair_bilstm_stream_fwd", _FWD_ARGTYPES, x.device,
+           x.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(),
+           h_out.data_ptr(), c_out.data_ptr() if with_cell else None,
+           batch, t_len, feat, hidden, int(x.dtype == torch.bfloat16))
     bilstm_stream.launches += 1
     return h_out, c_out
 
@@ -207,7 +182,7 @@ def bilstm_stream_backward(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
     """The backward of one layer on stacked parameters: (dx in x.dtype or
     None, dw, du, db float32). Same inputs and outputs as
     ``bilstm_stream_backward_reference``; a CUDA tensor runs the kernel."""
-    if not _on_cuda(x, "bilstm_stream_backward"):
+    if not on_cuda(x, "bilstm_stream_backward"):
         return bilstm_stream_backward_reference(x, w, u, b, h_out, c_out, dh_out,
                                                 need_dx=need_dx)
     _check(x, w, u, b)
@@ -234,17 +209,12 @@ def bilstm_stream_backward(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
     partial = torch.empty((splits, 2, feat + hidden + 1, 4 * hidden),
                           dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
-    fn = _load(_BWD_KERNEL, "clair_bilstm_stream_bwd", _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), u.data_ptr(), u_t.data_ptr(), b.data_ptr(),
-                 h_out.data_ptr(), c_out.data_ptr(), dh_out.data_ptr(),
-                 dgates.data_ptr(), partial.data_ptr(),
-                 dx.data_ptr() if need_dx else None,
-                 batch, t_len, feat, hidden, splits, rows_per_split,
-                 int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{_BWD_KERNEL} launch failed: CUDA error {err}")
+    launch(_BWD_KERNEL, "clair_bilstm_stream_bwd", _BWD_ARGTYPES, x.device,
+           x.data_ptr(), w.data_ptr(), u.data_ptr(), u_t.data_ptr(), b.data_ptr(),
+           h_out.data_ptr(), c_out.data_ptr(), dh_out.data_ptr(),
+           dgates.data_ptr(), partial.data_ptr(), dx.data_ptr() if need_dx else None,
+           batch, t_len, feat, hidden, splits, rows_per_split,
+           int(x.dtype == torch.bfloat16))
     bilstm_stream_backward.launches += 1
     # the per-direction sum of the chunks' partials, in a fixed order (the
     # JAX caller sums its per-tile partials outside the kernel the same way)

@@ -6,6 +6,8 @@ at first use, on the machine with the card, into ``build/clair_tpu_torch/``
 beside the package; the library's file name carries a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one loads the
 library already built. A failed build raises with the compiler's output.
+``launch`` calls a kernel's C entry point on a tensor's current stream and
+raises on the CUDA error it returns.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "clair_tpu_torch"
@@ -85,3 +89,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LOADED[name] = lib
     return lib
+
+
+def on_cuda(x: torch.Tensor, name: str) -> bool:
+    """The wrappers' device rule: False for a CPU tensor (the plain
+    version), True for a CUDA tensor (the kernel); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {x.device}")
+    return True
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device, *args) -> None:
+    """Call the C entry point ``symbol`` of ``csrc/<name>.cu`` with ``args``
+    and then the current stream of ``device``; raise if it returns a CUDA
+    error. Every pointer and the stream go as ``ctypes.c_void_p`` in
+    ``argtypes`` (a default int argument would cut a 64-bit pointer to 32
+    bits); the stream is appended to ``argtypes`` here."""
+    fn = getattr(load(name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} ({symbol}) launch failed: CUDA error {err}")

@@ -17,8 +17,11 @@ read only after the next step has been dispatched: its values start their
 copy to pinned host memory at once and an event marks when they are there,
 which is the JAX loop's overlap done with device tensors.
 
-On a CUDA device both BiLSTM layers run the streaming kernels, forward and
-backward; a CPU device runs their plain versions.
+On a CUDA device both BiLSTM layers run the kernel pair the model config
+selects (models/clair.py:select_bilstm; the streaming pair unless a flag
+says otherwise), forward and backward; a CPU device runs their plain
+versions. ``use_stream_bilstm`` acts as in the JAX loop: True sets
+``use_pallas_stream_bilstm``, None and False leave the model's flags alone.
 """
 
 from __future__ import annotations
@@ -100,8 +103,10 @@ class TrainingConfig:
     # capped at 4; 0: inline)
     decompress_workers: Optional[int] = None
     restore_best: bool = True
-    # the JAX flag that picks the streaming Pallas BiLSTM; on a CUDA device
-    # the port runs only the streaming kernels, so False is refused there
+    # the JAX flag that picks the streaming Pallas BiLSTM: True selects it,
+    # None and False leave the model's kernel flags alone. False with no
+    # kernel flag set means the JAX package's lax.scan, which in the port is
+    # the plain version, kept off the card: refused on a CUDA device
     use_stream_bilstm: Optional[bool] = None
     device: str = "cuda"
 
@@ -152,11 +157,15 @@ def _check_supported(config: TrainingConfig, device: torch.device) -> None:
     if config.mesh is not None:
         raise NotImplementedError(
             "mesh: multi-GPU training is not ported yet (ROADMAP Queue 1 item 6)")
-    if device.type == "cuda" and config.use_stream_bilstm is False:
+    model = config.model
+    if (device.type == "cuda" and config.use_stream_bilstm is False
+            and not (model.use_pallas_bilstm or model.use_pallas_stream_bilstm
+                     or model.use_pallas_train_bilstm)):
         raise NotImplementedError(
-            "use_stream_bilstm=False: the port's BiLSTM on a CUDA device is the "
-            "streaming kernel pair; the other kernels are not ported yet "
-            "(ROADMAP Queue 2 items 2-4)")
+            "use_stream_bilstm=False with no BiLSTM kernel flag selects the JAX "
+            "package's lax.scan, which in the port is the plain PyTorch version: it "
+            "serves CPU tensors and is kept off the card (ROADMAP, the kernel rule); "
+            "set a ModelConfig kernel flag, or leave use_stream_bilstm unset")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training on 'cuda' needs a CUDA device and "
                            "torch.cuda.is_available() is false")
@@ -166,6 +175,8 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
     device = torch.device(config.device)
     _check_supported(config, device)
     model_config = dataclasses.replace(config.model, compute_dtype=config.train_compute_dtype)
+    if config.use_stream_bilstm:
+        model_config = dataclasses.replace(model_config, use_pallas_stream_bilstm=True)
     generator = torch.Generator(device=device).manual_seed(config.seed)
 
     if config.init_checkpoint is not None:

@@ -1,0 +1,159 @@
+"""The port's resident training BiLSTM (ops/bilstm_train.py, the plain
+versions on the CPU) against the JAX package's Pallas pair
+(clair_tpu/ops/pallas_bilstm_train.py) in interpret mode: values, and
+torch.autograd gradients of x and every parameter against jax.grad. Also
+the plain reverse sweep against torch.autograd of the plain forward, the
+wiring (float32 only, dx only when asked, no launch on the CPU), and, where
+there is a card, the kernels against their plain versions (the `cuda`
+test, also run by chip_smoke.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import clair_tpu.ops.pallas_bilstm_train as PT
+from clair_tpu_torch.models.bilstm import _stack_directions
+from clair_tpu_torch.ops.bilstm_train import (
+    _stack_params, bilstm_train, bilstm_train_backward, bilstm_train_backward_reference,
+    bilstm_train_forward, bilstm_train_reference,
+)
+
+# the geometries of tests/test_pallas_bilstm_train.py
+GEOMETRIES = [
+    (8, 33, 32, 128),      # lstm1 geometry
+    (8, 33, 256, 128),     # lstm2 geometry
+    (12, 33, 32, 128),     # batch the JAX wrapper pads to its tile
+    (8, 7, 16, 8),         # tiny odd geometry
+]
+# that file's tolerances: values 2e-5, gradients 3e-4 (sums over 33 steps in
+# another order)
+VALUE_TOL, GRAD_TOL = 2e-5, 3e-4
+# plain sweep vs autograd of the plain forward: the same float32 products on
+# the CPU, summed in another order
+PLAIN_RTOL, PLAIN_ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture
+def interpret_mode():
+    PT._INTERPRET = True
+    yield
+    PT._INTERPRET = False
+
+
+def _numpy_inputs(geometry, seed):
+    b, t, f, h = geometry
+    rs = np.random.RandomState(seed)
+
+    def one():
+        scale = 1.0 / np.sqrt(h)
+        return {"w": (rs.randn(f, 4 * h) * scale).astype(np.float32),
+                "u": (rs.randn(h, 4 * h) * scale).astype(np.float32),
+                "b": (rs.randn(4 * h) * 0.1).astype(np.float32)}
+
+    params = {"fw": one(), "bw": one()}
+    x = rs.randn(b, t, f).astype(np.float32)
+    weight = rs.randn(b, t, 2 * h).astype(np.float32)
+    return params, x, weight
+
+
+def _leaves(params, requires_grad=True):
+    return {d: {k: torch.tensor(v, requires_grad=requires_grad) for k, v in p.items()}
+            for d, p in params.items()}
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+def test_values_and_grads_match_the_pallas_pair(geometry, interpret_mode):
+    params, x, weight = _numpy_inputs(geometry, seed=0)
+
+    def jax_loss(p, xx):
+        return jnp.sum(PT.bilstm_train_pallas(p, xx) * weight)
+
+    want_out = np.asarray(PT.bilstm_train_pallas(params, jnp.asarray(x)))
+    want_params, want_x = jax.grad(jax_loss, argnums=(0, 1))(params, jnp.asarray(x))
+
+    leaves = _leaves(params)
+    xt = torch.tensor(x, requires_grad=True)
+    out = bilstm_train(leaves, xt)
+    assert out.dtype == torch.float32 and "BiLSTMTrain" in type(out.grad_fn).__name__
+    np.testing.assert_allclose(out.detach().numpy(), want_out, rtol=VALUE_TOL, atol=VALUE_TOL)
+    (out * torch.from_numpy(weight)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x), rtol=GRAD_TOL, atol=GRAD_TOL)
+    for d in ("fw", "bw"):
+        for k in ("w", "u", "b"):
+            np.testing.assert_allclose(leaves[d][k].grad.numpy(), np.asarray(want_params[d][k]),
+                                       rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=f"{d}.{k}")
+
+
+@pytest.mark.parametrize("geometry", [GEOMETRIES[2], GEOMETRIES[3]])
+def test_plain_sweep_matches_autograd_of_plain_forward(geometry):
+    """On the stacked layout: dx, dW, dU and db of the plain reverse sweep
+    against torch.autograd through ``bilstm_train_reference``."""
+    params, x, weight = _numpy_inputs(geometry, seed=1)
+    w, u, b = (t.detach().requires_grad_() for t in _stack_params(_leaves(params, False)))
+    xs = _stack_directions(torch.from_numpy(x)).contiguous().requires_grad_()
+    h_out, c_out = bilstm_train_reference(xs, w, u, b)
+    dh = _stack_directions(torch.from_numpy(weight)[..., :geometry[3]]).contiguous()
+    (h_out * dh).sum().backward()
+    got = bilstm_train_backward_reference(xs.detach(), w.detach(), u.detach(), b.detach(),
+                                          h_out.detach(), c_out.detach(), dh)
+    for name, g, want in zip(("dx", "dw", "du", "db"), got, (xs.grad, w.grad, u.grad, b.grad)):
+        assert g.dtype == torch.float32 and g.shape == want.shape, name
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=PLAIN_RTOL, atol=PLAIN_ATOL,
+                                   err_msg=name)
+
+
+def test_float32_only():
+    params, x, _ = _numpy_inputs(GEOMETRIES[3], seed=2)
+    with pytest.raises(TypeError, match="float32"):
+        bilstm_train(_leaves(params, False), torch.from_numpy(x).to(torch.bfloat16))
+
+
+def test_no_input_gradient_unless_asked_and_no_launch_on_the_cpu():
+    """lstm1's input takes no gradient: the backward then computes no dx;
+    the CPU wrappers take the plain versions and launch nothing."""
+    params, x, weight = _numpy_inputs(GEOMETRIES[3], seed=3)
+    before = (bilstm_train.launches, bilstm_train_backward.launches)
+    w, u, b = _stack_params(_leaves(params, False))
+    xs = _stack_directions(torch.from_numpy(x)).contiguous()
+    h_out, c_out = bilstm_train_forward(xs, w, u, b)
+    dx, *_ = bilstm_train_backward(xs, w, u, b, h_out, c_out, torch.ones_like(h_out),
+                                   need_dx=False)
+    assert dx is None
+    leaves = _leaves(params)
+    out = bilstm_train(leaves, torch.from_numpy(x))
+    (out * torch.from_numpy(weight)).sum().backward()
+    assert all(leaves[d][k].grad is not None for d in leaves for k in leaves[d])
+    with torch.no_grad():
+        assert bilstm_train(leaves, torch.from_numpy(x)).grad_fn is None
+    assert (bilstm_train.launches, bilstm_train_backward.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+def test_cuda_kernels_match_plain_on_the_card(geometry):
+    """Both kernels vs their plain versions on the card, on the same inputs:
+    h and c within 1e-4, dx, dW, dU and db within 3e-4 of the reference's
+    max magnitude (float32 sums in another order); two backward runs give
+    the same bits (fixed-order partial sums, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, x, weight = _numpy_inputs(geometry, seed=4)
+    w, u, b = (t.cuda() for t in _stack_params(_leaves(params, False)))
+    xs = _stack_directions(torch.from_numpy(x).cuda()).contiguous()
+    dh = _stack_directions(torch.from_numpy(weight).cuda()[..., :geometry[3]]).contiguous()
+    before = (bilstm_train.launches, bilstm_train_backward.launches)
+    h_out, c_out = bilstm_train_forward(xs, w, u, b)
+    for got, want in zip((h_out, c_out), bilstm_train_reference(xs, w, u, b)):
+        assert (got - want).abs().max().item() <= 1e-4
+    got = bilstm_train_backward(xs, w, u, b, h_out, c_out, dh)
+    again = bilstm_train_backward(xs, w, u, b, h_out, c_out, dh)
+    want = bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh)
+    torch.cuda.synchronize()
+    for name, g, g2, r in zip(("dx", "dw", "du", "db"), got, again, want):
+        assert torch.equal(g, g2), name
+        assert (g - r).abs().max() <= 3e-4 * r.abs().max(), name
+    assert (bilstm_train.launches, bilstm_train_backward.launches) == (
+        before[0] + 1, before[1] + 2)

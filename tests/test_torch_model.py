@@ -115,7 +115,9 @@ def test_params_round_trip_through_the_module():
 
 
 def test_rejects_unported_kernel_flags_and_dtypes():
-    with pytest.raises(NotImplementedError):
-        ClairNet(dataclasses.replace(NARROW, use_pallas_bilstm=True))
+    # the train kernel is float32 only, as in the JAX forward
+    with pytest.raises(ValueError, match="use_pallas_train_bilstm is float32-only"):
+        ClairNet(dataclasses.replace(NARROW, use_pallas_train_bilstm=True,
+                                     compute_dtype="bfloat16"))
     with pytest.raises(ValueError, match="compute_dtype"):
         ClairNet(dataclasses.replace(NARROW, compute_dtype="float16"))
