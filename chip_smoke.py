@@ -34,15 +34,20 @@ Phases, each printing its results and seconds:
    8b. ``train_model`` under ``use_pallas_train_bilstm``, float32, on the
        same bin: the same checks, only the train pair launching
 9. times (CUDA events after warm-up) beside the card's name and power limit
-   9b. the new kernels' times, and the train step under each training pair
+   9b. the other kernels' times, and the train step under each training pair
    9c. bilstm2 as a library call on the vendored checkpoint's two layers
+   9d. each kernel's bound (the least time the card could take for its
+       work) and the time of the one PyTorch call that computes the same
+       function, where there is one (torch.nn.LSTM, cuDNN, TF32 off)
 
 Each run of phases 7, 7b, 8 and 8b runs in a process of its own, so the
 launch counts it reports start from 0 just before it and are read just
 after it; 9c sets bilstm2's count to 0 just before its call. Any failed
 phase raises, so the script exits non-zero without the last line. The last
 two lines are a JSON summary of the kernels and the device line
-``{"ok": true, "device": {...}}``. Nothing here imports JAX.
+``{"ok": true, "device": {...}}``. Nothing here imports JAX or the JAX
+package; phase 2 also builds the port's native host library (C++ pileup and
+decode) and says whether it loaded.
 """
 
 import dataclasses
@@ -131,14 +136,20 @@ TRAIN_GEOMETRIES = ((10000, 33, 32, 128), (10000, 33, 256, 128), (512, 33, 32, 1
 PRECOMPUTED_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (13, 33, 32, 128),
                           (13, 33, 256, 128))
 BILSTM2_BATCHES = (512, 13, 10000)
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): float32
+# outside the tensor cores, bf16 on them, and device memory
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+HBM_BYTES_PER_S = 3.35e12
+T_LEN, HIDDEN, CALL_BATCH, TRAIN_BATCH = 33, 128, 512, 10_000
+LAYERS = (("lstm1", 32), ("lstm2", 256))
 
 # calling under use_pallas_bilstm, in a process of its own (phase 7b)
 CALL_SCRIPT = """
 import json, sys
-from clair_tpu.params import ModelConfig
-from clair_tpu.pipeline.call_bam import CallBamConfig, call_bam
 from clair_tpu_torch.cli import _kernel_counts
 from clair_tpu_torch.models.checkpoint import load_checkpoint
+from clair_tpu_torch.params import ModelConfig
+from clair_tpu_torch.pipeline.call_bam import CallBamConfig, call_bam
 from clair_tpu_torch.pipeline.call_var import Predictor
 bam, fasta, ckpt, out, dtype = sys.argv[1:]
 params, _ = load_checkpoint(ckpt)
@@ -152,9 +163,9 @@ print(json.dumps({"kernel_launches": _kernel_counts()}), file=sys.stderr)
 # training under use_pallas_train_bilstm, in a process of its own (phase 8b)
 TRAIN_SCRIPT = """
 import json, logging, sys
-from clair_tpu.params import ModelConfig
 from clair_tpu_torch.cli import _kernel_counts
 from clair_tpu_torch.data.bins import load_bin
+from clair_tpu_torch.params import ModelConfig
 from clair_tpu_torch.pipeline.train import TrainingConfig, train_model
 logging.basicConfig(format="%(message)s", level=logging.INFO)
 bin_fn, prefix, epochs = sys.argv[1], sys.argv[2], int(sys.argv[3])
@@ -217,12 +228,21 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def build_all():
-    """Phase 2: one nvcc per source, all started together."""
+    """Phase 2: one nvcc per source and the native host library (g++), all
+    started together."""
+    from clair_tpu_torch import native
     from clair_tpu_torch.ops import build
 
     names = sorted(p.stem for p in (ROOT / "clair_tpu_torch" / "csrc").glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+    with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
+        host = pool.submit(native.available)
         libs = dict(zip(names, pool.map(build.build, names)))
+        loaded = host.result()
+    built = ("built before this run" if native.BUILD_SECONDS is None
+             else f"built in {native.BUILD_SECONDS:.2f} s")
+    print(f"  native host library {Path(native._lib_path()).relative_to(ROOT)}: "
+          f"loaded {loaded}, {built}")
+    assert loaded, f"the port's native host library did not build or load:\n{native.BUILD_ERROR}"
     for name, lib in libs.items():
         report = build.BUILD_REPORTS.get(name)
         regs = ([line.strip() for line in report.splitlines() if "registers" in line]
@@ -440,9 +460,9 @@ def check_backward_kernel(dev):
 
 def check_forward(dev):
     """Phase 5: full-width forward, card vs CPU, float32, batch 512."""
-    from clair_tpu.params import ModelConfig
     from clair_tpu_torch.models.checkpoint import load_checkpoint
     from clair_tpu_torch.models.clair import ClairNet
+    from clair_tpu_torch.params import ModelConfig
     from clair_tpu_torch.pipeline.call_var import _device_input
 
     params, _ = load_checkpoint(str(ROOT / "examples" / "ont_production.ckpt"))
@@ -480,9 +500,9 @@ def check_train_step(params, pair=STREAM_PAIR, **flags):
     (plain), float32, every dropout rate 0, batch 512, with the kernel pair
     the ModelConfig ``flags`` select; only that pair launches, 6 + 6
     times."""
-    from clair_tpu.params import ModelConfig
     from clair_tpu_torch.models.clair import ClairNet, params_to_jax
     from clair_tpu_torch.parallel.sharding import make_optimizer, make_train_step
+    from clair_tpu_torch.params import ModelConfig
 
     config = dataclasses.replace(ModelConfig(), lstm2_dropout_rate=0.0, l4_dropout_rate=0.0,
                                  l5_dropout_rate=0.0, **flags)
@@ -516,7 +536,7 @@ def check_train_step(params, pair=STREAM_PAIR, **flags):
 
 
 def simulate_genome(workdir: Path):
-    from clair_tpu.utils import simulate
+    from clair_tpu_torch.utils import simulate
 
     recipe = simulate.PLATFORM_RECIPES["ont"]
     rs = np.random.RandomState(424242)
@@ -583,9 +603,9 @@ def decisions(rows):
 def write_training_bin(path: Path):
     """TRAIN_ROWS learnable rows in blocks of BIN_BLOCK_SIZE, written by the
     port's bins module."""
-    from clair_tpu.io import lz4
-    from clair_tpu.params import BIN_BLOCK_SIZE
     from clair_tpu_torch.data import bins
+    from clair_tpu_torch.io import lz4
+    from clair_tpu_torch.params import BIN_BLOCK_SIZE
 
     x, y = pileup_batch(np.random.RandomState(12), TRAIN_ROWS)
     order = np.random.RandomState(13).permutation(TRAIN_ROWS)
@@ -630,9 +650,9 @@ def train(prefix: Path, run, pair=STREAM_PAIR):
 def train_step_times(params, dev, dtype, **flags):
     """ms per full-width train step at batch 10,000 (host clock around
     synchronized steps, after a warm-up step)."""
-    from clair_tpu.params import TRAIN_BATCH_SIZE, ModelConfig
     from clair_tpu_torch.models.clair import ClairNet
     from clair_tpu_torch.parallel.sharding import make_optimizer, make_train_step
+    from clair_tpu_torch.params import TRAIN_BATCH_SIZE, ModelConfig
 
     model = ClairNet.from_jax(params, ModelConfig(compute_dtype=dtype, **flags), dev)
     step = make_train_step(model, make_optimizer(dict(model.named_parameters()), "Adam", 1e-3))
@@ -734,6 +754,155 @@ def bilstm2_library_call(params, dev):
           f"max|d| vs the streaming layers {err:.3e}")
     assert launches == 1 and torch.isfinite(out).all() and err <= F32_TOL, (launches, err)
     return launches
+
+
+def fwd_work(batch, feat, dtype, with_cell=False, stacked=False):
+    """(operations, bytes) of one BiLSTM layer's forward: the two products
+    of every step (2 * 2B * T * (F + H) * 4H; the gate nonlinearities are
+    not counted), and x, W, U, b read once and h (and the float32 c)
+    written once. ``stacked``: the train pair's input, both directions
+    stacked along the batch (x twice)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    rows = batch * T_LEN
+    flops = 2 * 2 * rows * (feat + HIDDEN) * 4 * HIDDEN
+    weights = 2 * (feat + HIDDEN) * 4 * HIDDEN * e + 2 * 4 * HIDDEN * 4
+    out = rows * 2 * HIDDEN * (e + (4 if with_cell else 0))
+    return flops, rows * feat * e * (2 if stacked else 1) + weights + out
+
+
+def bwd_work(batch, feat, dtype, need_dx, stacked=False):
+    """(operations, bytes) of one layer's backward: the gates recomputed
+    from [x | h], dh carried through U, dW and dU, and dx where wanted;
+    x, h, c (float32), dh and the weights read once, dx and the float32
+    dW, dU, db written once."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    rows = batch * T_LEN
+    depth = (feat + HIDDEN) + HIDDEN + (feat + HIDDEN) + (feat if need_dx else 0)
+    flops = 2 * 2 * rows * 4 * HIDDEN * depth
+    x = rows * feat * e * (2 if stacked else 1)
+    weights = 2 * (feat + HIDDEN) * 4 * HIDDEN * e + 2 * 4 * HIDDEN * 4
+    saved = rows * 2 * HIDDEN * (e + 4 + e)           # h, float32 c, dh
+    grads = 2 * (feat + HIDDEN + 1) * 4 * HIDDEN * 4
+    return flops, x + weights + saved + grads + (x if need_dx else 0)
+
+
+def bound(works, dtype):
+    """(ms, "operations" or "bytes"): the larger of the operations over the
+    card's peak for dtype and the bytes over its memory rate, summed over
+    the layers' (operations, bytes)."""
+    ops_s = sum(f for f, _ in works) / PEAK_FLOPS[dtype]
+    bytes_s = sum(b for _, b in works) / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def library_lstm(layers, dtype, dev):
+    """torch.nn.LSTM (cuDNN) carrying the layers' weights: weight_ih = w.T,
+    weight_hh = u.T, bias_ih = b, bias_hh = 0 (ROADMAP Queue 3's oracle)."""
+    feat = layers[0]["fw"]["w"].shape[0]
+    lstm = torch.nn.LSTM(feat, HIDDEN, num_layers=len(layers), bidirectional=True,
+                         batch_first=True).to(dev)
+    with torch.no_grad():
+        for i, p in enumerate(layers):
+            for suffix, d in (("", "fw"), ("_reverse", "bw")):
+                getattr(lstm, f"weight_ih_l{i}{suffix}").copy_(p[d]["w"].T)
+                getattr(lstm, f"weight_hh_l{i}{suffix}").copy_(p[d]["u"].T)
+                getattr(lstm, f"bias_ih_l{i}{suffix}").copy_(p[d]["b"])
+                getattr(lstm, f"bias_hh_l{i}{suffix}").zero_()
+    lstm = lstm.to(dtype)
+    lstm.flatten_parameters()  # one weight buffer, as cuDNN takes it
+    return lstm
+
+
+def backward_ms(lstm, x, dh, iters):
+    """Mean device time of lstm's backward alone (CUDA events around
+    .backward() after each forward)."""
+    total = 0.0
+    for i in range(iters + 1):
+        out, _ = lstm(x)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.backward(dh)
+        end.record()
+        torch.cuda.synchronize()
+        if i:  # the first is the warm-up
+            total += start.elapsed_time(end)
+    return total / iters
+
+
+def yardsticks(dev):
+    """Phase 9d: each kernel's bound_ms at the shapes of its JSON ``ms``
+    (rows 1 and 3 the calling path, B = 512, both layers, bf16; row 4 both
+    layers fused, B = 512, float32; rows 2, 5 and 6 the training batch,
+    B = 10,000, both layers, bf16 for the streaming pair and float32 for
+    the train pair, lstm1 without dx), and library_ms, the time of
+    torch.nn.LSTM computing the same function on the same shapes (None
+    where no single call does, or where it refuses the dtype)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    bounds = {
+        "bilstm_stream": bound([fwd_work(CALL_BATCH, f, bf16) for _, f in LAYERS], bf16),
+        "bilstm_stream_backward": bound(
+            [bwd_work(TRAIN_BATCH, f, bf16, need_dx=f != 32) for _, f in LAYERS], bf16),
+        "bilstm_train": bound([fwd_work(TRAIN_BATCH, f, f32, with_cell=True, stacked=True)
+                               for _, f in LAYERS], f32),
+        "bilstm_train_backward": bound(
+            [bwd_work(TRAIN_BATCH, f, f32, need_dx=f != 32, stacked=True) for _, f in LAYERS],
+            f32),
+        # the recurrence alone on precomputed xw: 2 * 2B * T * H * 4H per
+        # layer, xw (lstm1 bf16, lstm2 float32) and U read, float32 h written
+        "bilstm_precomputed": bound(
+            [(2 * 2 * CALL_BATCH * T_LEN * HIDDEN * 4 * HIDDEN,
+              2 * T_LEN * CALL_BATCH * 4 * HIDDEN * xw_e + 2 * HIDDEN * 4 * HIDDEN * 2
+              + CALL_BATCH * T_LEN * 2 * HIDDEN * 4) for xw_e in (2, 4)], bf16),
+        # both layers, layer 1's h kept on chip
+        "bilstm2": bound([(fwd_work(CALL_BATCH, 32, f32)[0] + fwd_work(CALL_BATCH, 256, f32)[0],
+                           CALL_BATCH * T_LEN * (32 + 2 * HIDDEN) * 4
+                           + sum(2 * (f + HIDDEN) * 4 * HIDDEN * 4 for _, f in LAYERS))], f32),
+    }
+    library = dict.fromkeys(KERNELS)
+    rs = np.random.RandomState(15)
+    params = {f: lstm_params(rs, f, HIDDEN, dev) for _, f in LAYERS}
+
+    def each_layer(batch, dtype, run):
+        total = 0.0
+        for layer, feat in LAYERS:
+            lstm = library_lstm([params[feat]], dtype, dev)
+            x = torch.tensor(rs.randn(batch, T_LEN, feat), dtype=dtype, device=dev)
+            ms = run(lstm, x, feat)
+            print(f"    torch.nn.LSTM {layer} B={batch} {str(dtype)[6:]}: {ms:.4f} ms")
+            total += ms
+        return total
+
+    def inference(lstm, x, feat):
+        with torch.no_grad():
+            return cuda_ms(lambda: lstm(x))
+
+    def training_forward(lstm, x, feat):
+        return cuda_ms(lambda: lstm(x), 5)
+
+    def training_backward(lstm, x, feat):
+        x = x.requires_grad_(feat != 32)  # lstm1's input takes no gradient
+        dh = torch.tensor(rs.randn(*x.shape[:2], 2 * HIDDEN), dtype=x.dtype, device=dev)
+        return backward_ms(lstm, x, dh, 5)
+
+    for name, batch, dtype, run in (("bilstm_stream", CALL_BATCH, bf16, inference),
+                                    ("bilstm_stream_backward", TRAIN_BATCH, bf16, training_backward),
+                                    ("bilstm_train", TRAIN_BATCH, f32, training_forward),
+                                    ("bilstm_train_backward", TRAIN_BATCH, f32, training_backward)):
+        try:
+            library[name] = each_layer(batch, dtype, run)
+        except RuntimeError as refused:  # the yardstick, not the port: record and go on
+            print(f"    torch.nn.LSTM refuses {name}'s shapes in {dtype}: {refused}")
+    two = library_lstm([params[32], params[256]], f32, dev)
+    x = torch.tensor(rs.randn(CALL_BATCH, T_LEN, 32), dtype=f32, device=dev)
+    library["bilstm2"] = inference(two, x, 32)
+    print(f"    torch.nn.LSTM num_layers=2 B={CALL_BATCH} float32: {library['bilstm2']:.4f} ms")
+    # the streaming forward's float32 calling layers too, for the table
+    each_layer(CALL_BATCH, f32, inference)
+    for name in KERNELS:
+        ms, by = bounds[name]
+        lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
+        print(f"  {name}: bound {ms:.4f} ms ({by}), library {lib}")
+    return bounds, library
 
 
 def main():
@@ -859,11 +1028,11 @@ def main():
     phase("8b training path, use_pallas_train_bilstm", t)
 
     t = time.perf_counter()
-    from clair_tpu.params import ModelConfig
     from clair_tpu_torch.models.bilstm import bilstm_with_cell
     from clair_tpu_torch.models.clair import ClairNet
+    from clair_tpu_torch.params import ModelConfig
     from clair_tpu_torch.ops.bilstm_stream import (
-        _stack_params, _unstacked, bilstm_stream, bilstm_stream_backward,
+        _forward, _stack_params, _unstacked, bilstm_stream, bilstm_stream_backward,
         bilstm_stream_backward_reference, bilstm_stream_reference,
     )
     from clair_tpu_torch.pipeline.call_var import _device_input
@@ -876,13 +1045,25 @@ def main():
         p = lstm_params(rs, feat, 128, dev)
         x = torch.tensor(rs.randn(512, 33, feat), dtype=torch.float32, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
-            xd = x.to(dtype)
-            k = cuda_ms(lambda: bilstm_stream(p, xd))
+            # the kernel's launch on stacked parameters (the wrapper also
+            # stacks and casts them per call, by three torch ops)
+            xd, stacked = x.to(dtype), _stack_params(p, dtype)
+            k = cuda_ms(lambda: _forward(xd, *stacked, with_cell=False))
             pl = cuda_ms(lambda: bilstm_stream_reference(p, xd))
-            print(f"  forward {layer} B=512 {str(dtype)[6:]}: kernel {k:.4f} ms, plain {pl:.4f} ms")
+            wrapped = cuda_ms(lambda: bilstm_stream(p, xd))
+            print(f"  forward {layer} B=512 {str(dtype)[6:]}: kernel {k:.4f} ms, plain {pl:.4f} ms, "
+                  f"through the wrapper {wrapped:.4f} ms")
             if dtype == torch.bfloat16:
                 ms["bilstm_stream"] += k
                 plain_ms["bilstm_stream"] += pl
+        # the training forward: B = 10,000, the float32 c saved for the backward
+        xt = torch.tensor(rs.randn(TRAIN_BATCH, 33, feat), dtype=torch.float32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, stacked = xt.to(dtype), _stack_params(p, dtype)
+            k = cuda_ms(lambda: _forward(xd, *stacked, with_cell=True), 5)
+            pl = cuda_ms(lambda: bilstm_stream_reference(p, xd), 5)
+            print(f"  forward {layer} B={TRAIN_BATCH} {str(dtype)[6:]} (with c): kernel {k:.4f} ms, "
+                  f"plain {pl:.4f} ms")
         for batch in (512, 10_000):
             iters = 20 if batch == 512 else 5
             xb = torch.tensor(rs.randn(batch, 33, feat), dtype=torch.float32, device=dev)
@@ -927,6 +1108,11 @@ def main():
     library_launches = bilstm2_library_call(params, dev)
     phase("9c bilstm2 as a library call", t)
 
+    t = time.perf_counter()
+    print(f"bounds and library calls on {card}:")
+    bounds, library = yardsticks(dev)
+    phase("9d bounds and library calls", t)
+
     assert "jax" not in sys.modules
     print(f"card: {card}")
     # each kernel's launches in the run of the path that carries it
@@ -936,7 +1122,8 @@ def main():
                 "bilstm2": library_launches}
     print(json.dumps({"kernels": [dict(
         KERNELS[k], launches=launches[k], max_abs_err=max_err[k], ms=ms[k],
-        plain_ms=plain_ms[k]) for k in KERNELS]}))
+        plain_ms=plain_ms[k], bound_ms=bounds[k][0], bound_by=bounds[k][1],
+        library_ms=library[k]) for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

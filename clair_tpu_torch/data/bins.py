@@ -32,9 +32,9 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from clair_tpu.data.tensor_stream import normalize_channels, open_maybe_gzip
-from clair_tpu.io import lz4 as _lz4
-from clair_tpu.params import (
+from clair_tpu_torch.data.tensor_stream import normalize_channels, open_maybe_gzip
+from clair_tpu_torch.io import lz4 as _lz4
+from clair_tpu_torch.params import (
     BIN_BLOCK_SIZE,
     MATRIX_NUM,
     MATRIX_ROW,
@@ -42,9 +42,9 @@ from clair_tpu.params import (
     PREDICT_BATCH_SIZE,
     TRAIN_BATCH_SIZE,
 )
-from clair_tpu.task.labels import label_vector_from_reference, label_vector_from_truth
-from clair_tpu.utils.genomics import BASE2ACGT, BASIC_BASES
-from clair_tpu.utils.intervals import BedIntervals
+from clair_tpu_torch.task.labels import label_vector_from_reference, label_vector_from_truth
+from clair_tpu_torch.utils.genomics import BASE2ACGT, BASIC_BASES
+from clair_tpu_torch.utils.intervals import BedIntervals
 from clair_tpu_torch.io import zstd
 
 # the JAX package's magics: v2 added int16 blocks, v3 LZ4S frames

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from clair_tpu.params import ModelConfig
+from clair_tpu_torch.params import ModelConfig
 from clair_tpu_torch.models.layers import (
     alpha_dropout, dropout, glorot_uniform, he_fan_in, selu,
 )

@@ -13,7 +13,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from clair_tpu.task.labels import GENOTYPE_SPAN, GT21_SPAN, LENGTH1_SPAN, LENGTH2_SPAN
+from clair_tpu_torch.task.labels import GENOTYPE_SPAN, GT21_SPAN, LENGTH1_SPAN, LENGTH2_SPAN
 
 COMPONENTS = ("gt21", "genotype", "indel_length_1", "indel_length_2")
 

@@ -34,7 +34,9 @@ from clair_tpu_torch.ops.build import launch, on_cuda
 _FWD_KERNEL = "bilstm_stream_fwd"
 _BWD_KERNEL = "bilstm_stream_bwd"
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_HIDDEN = 1024  # one thread per hidden unit, one block per row tile
+# the backward's largest hidden size (one thread per hidden unit); the
+# forward takes any size whose weights fit a cluster's shared memory
+_MAX_HIDDEN = 1024
 # the backward's weight sums: rows per chunk of the split reduction, and
 # the most chunks (their float32 partials are summed by the caller)
 _SPLIT_ROWS = 2048

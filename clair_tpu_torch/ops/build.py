@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -34,6 +34,8 @@ _REPORT_FLAGS = ("-Xptxas", "-v")
 # compiler report (stderr) of each library built by this process
 BUILD_REPORTS: Dict[str, str] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# each C entry point with its argument types set, by (library, symbol)
+_ENTRIES: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -107,9 +109,12 @@ def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device, *ar
     error. Every pointer and the stream go as ``ctypes.c_void_p`` in
     ``argtypes`` (a default int argument would cut a 64-bit pointer to 32
     bits); the stream is appended to ``argtypes`` here."""
-    fn = getattr(load(name), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        _ENTRIES[(name, symbol)] = fn
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -13,7 +13,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from clair_tpu.params import GRADIENT_CLIP_NORM, MOMENTUM
+from clair_tpu_torch.params import GRADIENT_CLIP_NORM, MOMENTUM
 from clair_tpu_torch.models.clair import ClairNet
 from clair_tpu_torch.models.losses import total_loss
 

@@ -16,8 +16,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from clair_tpu.params import PREDICT_BATCH_SIZE, ModelConfig
-from clair_tpu.task.labels import split_label_vector
+from clair_tpu_torch.params import PREDICT_BATCH_SIZE, ModelConfig
+from clair_tpu_torch.task.labels import split_label_vector
 from clair_tpu_torch.data.bins import BinDataset
 from clair_tpu_torch.models.clair import ClairNet
 

@@ -36,7 +36,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from clair_tpu.params import (
+from clair_tpu_torch.params import (
     CLR_MAX_LR,
     CLR_STEPSIZE_CONSTANT,
     INITIAL_LEARNING_RATE,
@@ -50,7 +50,7 @@ from clair_tpu.params import (
     TRAINING_DATASET_PERCENTAGE,
     ModelConfig,
 )
-from clair_tpu.pipeline.schedules import AdaptiveDecay, CyclicalLR
+from clair_tpu_torch.pipeline.schedules import AdaptiveDecay, CyclicalLR
 from clair_tpu_torch.data.bins import BinDataset, EpochBatches
 from clair_tpu_torch.models.checkpoint import (
     checkpoint_path,

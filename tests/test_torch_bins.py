@@ -12,8 +12,9 @@ import pytest
 
 import clair_tpu.data.bins as jax_bins
 from clair_tpu.data.tensor_stream import tensor_line_from
-from clair_tpu.io import lz4
+from clair_tpu.io import lz4 as jax_lz4
 from clair_tpu_torch.data import bins
+from clair_tpu_torch.io import lz4
 
 SEQ = "ACGTACGTACGTACGTAGGTACGTACGTACGTA"
 
@@ -55,9 +56,10 @@ def _assert_same_contents(a, b):
 
 @pytest.fixture(params=["lz4s", "zstd"])
 def codec(request, monkeypatch):
-    """Both packages' writers pick the codec through clair_tpu.io.lz4."""
+    """Each package's writer picks the codec through its own io.lz4."""
     if request.param == "zstd":
-        monkeypatch.setattr(lz4, "available", lambda: False)
+        for module in (lz4, jax_lz4):
+            monkeypatch.setattr(module, "available", lambda: False)
     return request.param
 
 
@@ -116,8 +118,9 @@ def test_refuses_what_is_no_clair_tpu_bin(tmp_path):
 
 def test_first_lz4_lookup_from_many_threads(monkeypatch):
     """The feed's decompress pool makes the first liblz4 lookup from several
-    threads at once (clair_tpu.io.lz4 marks the library as looked for before
-    loading it): every thread must find it and decode the block."""
+    threads at once (io.lz4, the JAX package's and its copy, marks the
+    library as looked for before loading it): every thread must find it and
+    decode the block."""
     blob = bins._pack(_arrays(seed=7)[0][:4])
     want = bins._unpack(blob)
     old = sys.getswitchinterval()

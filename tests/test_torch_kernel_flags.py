@@ -23,7 +23,6 @@ import torch
 import clair_tpu.ops.pallas_bilstm_train as PT
 from clair_tpu.models.clair import forward_logits as jax_forward_logits
 from clair_tpu.models.clair import init_params as jax_init_params
-from clair_tpu.params import ModelConfig
 from clair_tpu.pipeline.call_var import Predictor as JaxPredictor
 from clair_tpu_torch.data import bins
 from clair_tpu_torch.models import clair as port_clair
@@ -31,10 +30,11 @@ from clair_tpu_torch.models.clair import ClairNet, select_bilstm
 from clair_tpu_torch.ops.bilstm import bilstm_precomputed
 from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
 from clair_tpu_torch.ops.bilstm_train import bilstm_train
+from clair_tpu_torch.params import ModelConfig
 from clair_tpu_torch.pipeline.call_var import Predictor
 from clair_tpu_torch.pipeline.train import TrainingConfig, _check_supported, train_model
 from test_torch_bilstm_precomputed import interpret_pallas
-from test_torch_train import _batch, _bin, _leaves, _numpy
+from test_torch_train import _batch, _bin, _leaves, _numpy, jax_config
 
 NARROW = ModelConfig(lstm1_num_units=8, lstm2_num_units=8, l3_num_units=4,
                      l4_num_units=16, l5_num_units=8)
@@ -72,9 +72,10 @@ def _pileup(rs, n, positions=33):
 def test_narrow_net_matches_jax_forward_logits(name, jax_kernels):
     config = FLAG_CONFIGS[name]
     rs = np.random.RandomState(0)
-    params = _numpy(jax_init_params(jax.random.PRNGKey(0), config))
+    params = _numpy(jax_init_params(jax.random.PRNGKey(0), jax_config(config)))
     x = _pileup(rs, 12)
-    want = [np.asarray(h) for h in jax.jit(lambda p, xx: jax_forward_logits(p, xx, config))(
+    want = [np.asarray(h) for h in jax.jit(
+            lambda p, xx: jax_forward_logits(p, xx, jax_config(config)))(
         params, x)]
     model = ClairNet.from_jax(params, config)
     with torch.inference_mode():
@@ -91,12 +92,12 @@ def test_narrow_net_gradients_match_jax_grad_under_the_train_kernel(jax_kernels)
     within 3e-4 (tests/test_pallas_bilstm_train.py's gradient bound)."""
     config = dataclasses.replace(SHORT, use_pallas_train_bilstm=True)
     rs = np.random.RandomState(1)
-    params = _numpy(jax_init_params(jax.random.PRNGKey(1), config))
+    params = _numpy(jax_init_params(jax.random.PRNGKey(1), jax_config(config)))
     x = _pileup(rs, 8, positions=11)
     weights = [rs.randn(8, n).astype(np.float32) for n in (21, 3, 33, 33)]
 
     def jax_loss(p):
-        heads = jax_forward_logits(p, x, config)
+        heads = jax_forward_logits(p, x, jax_config(config))
         return sum((h * w).sum() for h, w in zip(heads, weights))
 
     want = dict(_leaves(jax.jit(jax.grad(jax_loss))(params)))
@@ -179,9 +180,9 @@ def test_predictor_under_each_flag_matches_jax(name, jax_kernels):
     interpret mode) on the same uint8 batch, short of the batch size: the
     same heads; the port's model runs the flag's kernel layer."""
     config = dataclasses.replace(FLAG_CONFIGS[name], input_shape=SHORT.input_shape)
-    params = _numpy(jax_init_params(jax.random.PRNGKey(2), config))
+    params = _numpy(jax_init_params(jax.random.PRNGKey(2), jax_config(config)))
     x = np.random.RandomState(3).randint(0, 40, (10, 11, 8, 4)).astype(np.uint8)
-    jax_pred = JaxPredictor(params, config, batch_size=16)
+    jax_pred = JaxPredictor(params, jax_config(config), batch_size=16)
     port = Predictor(params, config, batch_size=16, device="cpu")
     assert port.model.bilstm is select_bilstm(config)
     assert port.model.bilstm in (bilstm_train, bilstm_precomputed)

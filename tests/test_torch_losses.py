@@ -10,9 +10,9 @@ import pytest
 import torch
 
 from clair_tpu.models import losses as jax_losses
-from clair_tpu.params import ModelConfig
 from clair_tpu_torch.models import losses
 from clair_tpu_torch.models.clair import param_shapes, params_from_jax
+from clair_tpu_torch.params import ModelConfig
 
 RTOL = 1e-5
 NARROW = ModelConfig(lstm1_num_units=8, lstm2_num_units=8, l3_num_units=4,

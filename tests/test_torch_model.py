@@ -15,10 +15,11 @@ import clair_tpu.ops.pallas_bilstm_stream as PS
 from clair_tpu.models.checkpoint import load_checkpoint
 from clair_tpu.models.clair import forward as jax_forward
 from clair_tpu.models.clair import init_params
-from clair_tpu.params import ModelConfig
 from clair_tpu_torch.models.clair import (
     ClairNet, param_shapes, params_from_jax, params_to_jax,
 )
+from clair_tpu_torch.params import ModelConfig
+from test_torch_train import jax_config
 
 NARROW = ModelConfig(lstm1_num_units=8, lstm2_num_units=8, l3_num_units=4,
                      l4_num_units=16, l5_num_units=8)
@@ -39,7 +40,7 @@ def _pileup(rs, n):
 
 
 def _both(params, x, config):
-    want = [np.asarray(p) for p in jax_forward(params, x, config)]
+    want = [np.asarray(p) for p in jax_forward(params, x, jax_config(config))]
     with torch.inference_mode():  # the parameters are trainable
         got = [p.numpy() for p in ClairNet.from_jax(params, config)(torch.from_numpy(x))]
     return want, got
@@ -48,7 +49,7 @@ def _both(params, x, config):
 def test_param_shapes_match_jax_init_params():
     import jax
 
-    tree = init_params(jax.random.PRNGKey(0), NARROW)
+    tree = init_params(jax.random.PRNGKey(0), jax_config(NARROW))
     shapes = param_shapes(NARROW)
     assert jax.tree.map(lambda a: tuple(a.shape), tree) == shapes
 

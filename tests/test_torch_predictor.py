@@ -1,22 +1,28 @@
 """The port's Predictor against the JAX Predictor (both float32 on the CPU):
 the same head probabilities on uint8 and float32 link batches, and the same
-VCF from call_bam on a small simulated ONT genome with the vendored ONT
-checkpoint, sequentially and through the threaded WGS runner."""
+VCF from the port's call_bam as from the JAX package's on a small simulated
+ONT genome with the vendored ONT checkpoint, sequentially, through the
+threaded WGS runner and through both command lines."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 
 from clair_tpu.models.checkpoint import load_checkpoint as jax_load_checkpoint
-from clair_tpu.params import ModelConfig
-from clair_tpu.pipeline.call_bam import CallBamConfig, call_bam
+from clair_tpu.params import ModelConfig as JaxModelConfig
+from clair_tpu.pipeline.call_bam import CallBamConfig as JaxCallBamConfig
+from clair_tpu.pipeline.call_bam import call_bam as jax_call_bam
 from clair_tpu.pipeline.call_var import Predictor as JaxPredictor
-from clair_tpu.utils import simulate
-from clair_tpu.utils.simulate import (
-    PLATFORM_RECIPES, plant_variants, random_reference, simulate_bam, write_fasta,
-)
 from clair_tpu_torch.models.checkpoint import load_checkpoint
 from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
+from clair_tpu_torch.params import ModelConfig
+from clair_tpu_torch.pipeline.call_bam import CallBamConfig, call_bam
 from clair_tpu_torch.pipeline.call_var import Predictor
+from clair_tpu_torch.utils import simulate
+from clair_tpu_torch.utils.simulate import (
+    PLATFORM_RECIPES, plant_variants, random_reference, simulate_bam, write_fasta,
+)
 
 CKPT = "examples/ont_synthetic.ckpt"
 # QUAL = (10*log10(p / (1 - p)) + 16)^2. Above 3000, 1 - p < 1.3e-4, and the
@@ -45,9 +51,8 @@ def test_predictor_matches_jax_on_both_link_dtypes(params):
     int16) batches in one run, the second one short of the batch size:
     every head within 2e-5 of the JAX Predictor."""
     rs = np.random.RandomState(0)
-    config = ModelConfig()
-    jax_pred = JaxPredictor(jax_load_checkpoint(CKPT)[0], config, batch_size=32)
-    port = Predictor(params, config, batch_size=32, device="cpu")
+    jax_pred = JaxPredictor(jax_load_checkpoint(CKPT)[0], JaxModelConfig(), batch_size=32)
+    port = Predictor(params, ModelConfig(), batch_size=32, device="cpu")
     for x in (_uint8_batch(rs, 32), _normalized_f32_batch(rs, 21)):
         want = jax_pred.gather(*jax_pred.predict_async(x))
         got = port.gather(*port.predict_async(x))
@@ -110,8 +115,9 @@ def _assert_same_calls(got_rows, want_rows):
 def test_call_bam_vcf_matches_jax_predictor(params, ont_genome):
     root, config = ont_genome
     want, got = str(root / "jax.vcf"), str(root / "port.vcf")
-    call_bam(config, JaxPredictor(jax_load_checkpoint(CKPT)[0], ModelConfig(),
-                                  batch_size=64), output_path=want)
+    jax_call_bam(JaxCallBamConfig(**dataclasses.asdict(config)),
+                 JaxPredictor(jax_load_checkpoint(CKPT)[0], JaxModelConfig(), batch_size=64),
+                 output_path=want)
     call_bam(config, Predictor(params, ModelConfig(), batch_size=64, device="cpu"),
              output_path=got)
     _assert_same_calls(_rows(got), _rows(want))
@@ -120,7 +126,7 @@ def test_call_bam_vcf_matches_jax_predictor(params, ont_genome):
 def test_threaded_runner_takes_the_port_predictor(params, ont_genome):
     """call_bam_windows_threaded probes eager_host_copy and gather_group;
     over two windows it writes the rows the sequential call_bam writes."""
-    from clair_tpu.pipeline.call_bam_parallel import call_bam_windows_threaded
+    from clair_tpu_torch.pipeline.call_bam_parallel import call_bam_windows_threaded
 
     root, config = ont_genome
     sequential, threaded = str(root / "seq.vcf"), str(root / "threaded.vcf")
@@ -134,9 +140,10 @@ def test_threaded_runner_takes_the_port_predictor(params, ont_genome):
 
 def test_cli_call_bam_runs_the_jax_runner_with_the_port_predictor(
         ont_genome, monkeypatch, capsys):
-    """`python -m clair_tpu_torch call_bam` parses the JAX command's flags
-    and runs its runner; only the predictor is the port's (here placed on
-    the CPU, where the command itself refuses to run)."""
+    """`python -m clair_tpu_torch call_bam` takes the JAX command's flags and
+    runs the port's copy of its runner with the port's predictor (here
+    placed on the CPU, where the command itself refuses to run): the JAX
+    command's calls, and one JSON line of kernel launches."""
     import functools
     import json
 
@@ -151,10 +158,8 @@ def test_cli_call_bam_runs_the_jax_runner_with_the_port_predictor(
             "--chkpnt_fn", CKPT, "--ctgName", "chr1", "--threshold", "0.2",
             "--dtype", "float32"]
     want, got = str(root / "cli_jax.vcf"), str(root / "cli_port.vcf")
-    factory = jax_cli._predictor_from
     assert jax_cli.main(argv + ["--call_fn", want]) == 0
     assert cli.main(argv + ["--call_fn", got]) == 0
-    assert jax_cli._predictor_from is factory
     _assert_same_calls(_rows(got), _rows(want))
     report = capsys.readouterr().err.strip().splitlines()[-1]
     assert json.loads(report) == {"kernel_launches": dict.fromkeys(
@@ -210,16 +215,41 @@ def test_cli_call_var_matches_jax(ont_genome, monkeypatch):
     _assert_same_calls(_rows(got), _rows(want))
 
 
+PARALLEL_ARGS = ["call_bam_parallel", "--bam_fn", "x.bam", "--ref_fn", "x.fa",
+                 "--chkpnt_fn", CKPT, "--output_prefix", "x"]
+
+
 @pytest.mark.parametrize("argv,match", [
     (["call_var", "--activation_only"], "activation_only"),
-    (["call_bam_parallel", "--process_pool", "--run"], "process_pool"),
-    (["call_bam_parallel", "--bam_fn", "x.bam"], "command sheet"),
+    (PARALLEL_ARGS + ["--process_pool", "--run"], "process_pool"),
+    (PARALLEL_ARGS + ["--run", "--num_devices", "2"], "num_devices"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match):
     from clair_tpu_torch import cli
 
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv)
+
+
+def test_cli_command_sheet_names_the_port(ont_genome):
+    """call_bam_parallel without --run prints one port call_bam command per
+    window, as the JAX command sheet prints its own."""
+    import subprocess
+    import sys
+
+    root, config = ont_genome
+    proc = subprocess.run(
+        [sys.executable, "-m", "clair_tpu_torch", "call_bam_parallel", "--bam_fn", config.bam_path,
+         "--ref_fn", config.fasta_path, "--chkpnt_fn", CKPT,
+         "--output_prefix", str(root / "sheet"), "--refChunkSize", "2000"],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 2
+    for i, line in enumerate(lines):
+        assert line.startswith(f"python -m clair_tpu_torch call_bam --bam_fn {config.bam_path} ")
+        assert f"--ctgStart {i * 2000 + 1} --ctgEnd {(i + 1) * 2000}" in line
 
 
 def test_cli_refuses_more_than_one_device():

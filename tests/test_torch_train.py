@@ -19,13 +19,14 @@ import clair_tpu.data.bins as jax_bins
 from clair_tpu.models import checkpoint as jax_ckpt
 from clair_tpu.models.clair import init_params as jax_init_params
 from clair_tpu.models.layers import alpha_dropout as jax_alpha_dropout
-from clair_tpu.params import ModelConfig
+from clair_tpu.params import ModelConfig as JaxModelConfig
 from clair_tpu.parallel import sharding as jax_sharding
 from clair_tpu_torch import cli
 from clair_tpu_torch.data import bins
 from clair_tpu_torch.models.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from clair_tpu_torch.models.clair import ClairNet, init_params, params_from_jax
 from clair_tpu_torch.models.layers import ALPHA_DROPOUT_VALUE, alpha_dropout, dropout
+from clair_tpu_torch.params import ModelConfig
 from clair_tpu_torch.parallel import sharding
 from clair_tpu_torch.pipeline.evaluate import evaluate_model
 from clair_tpu_torch.pipeline.train import TrainingConfig, train_model
@@ -38,6 +39,11 @@ NO_DROPOUT = dataclasses.replace(NARROW, lstm2_dropout_rate=0.0, l4_dropout_rate
 # XLA compiles the fully unrolled scan's gradient in ~4 s instead of ~12
 # (the 33-step recurrence is held against JAX in test_torch_bilstm_backward)
 SHORT = dataclasses.replace(NO_DROPOUT, input_shape=(11, 8, 4))
+
+
+def jax_config(config):
+    """The JAX package's ModelConfig with the fields of the port's."""
+    return JaxModelConfig(**dataclasses.asdict(config))
 
 
 def _numpy(tree):
@@ -117,7 +123,7 @@ def test_init_params_match_jax_distributions():
     standard errors of the intended std; he_fan_in truncated at 2 sigma.
     L3's fan_in is 33 * 256 = 8448 (JAX's fan rule), not 33."""
     port = dict(_leaves(init_params(torch.Generator().manual_seed(0), ModelConfig())))
-    ref = dict(_leaves(jax_init_params(jax.random.PRNGKey(0), ModelConfig())))
+    ref = dict(_leaves(jax_init_params(jax.random.PRNGKey(0), JaxModelConfig())))
     assert sorted(port) == sorted(ref)
     for name, w in port.items():
         assert w.shape == ref[name].shape and w.dtype == np.float32, name
@@ -153,7 +159,7 @@ def test_clip_and_update_match_optax(optimizer_name, grad_scale):
     atol is a few ulps of a parameter below 0.5 (6e-8)."""
     rs = np.random.RandomState(4)
     tree = jax.tree.map(lambda a: (rs.randn(*a.shape) * 0.1).astype(np.float32),
-                        _numpy(jax_init_params(jax.random.PRNGKey(1), NARROW)))
+                        _numpy(jax_init_params(jax.random.PRNGKey(1), jax_config(NARROW))))
     grads = [jax.tree.map(lambda a: (rs.randn(*a.shape) * grad_scale).astype(np.float32), tree)
              for _ in range(3)]
 
@@ -200,10 +206,10 @@ def test_three_adam_steps_match_jax_train_step():
     within rtol 3e-4."""
     rs = np.random.RandomState(5)
     x, y = _batch(rs, 16, positions=11)
-    params = _numpy(jax_init_params(jax.random.PRNGKey(2), SHORT))
+    params = _numpy(jax_init_params(jax.random.PRNGKey(2), jax_config(SHORT)))
 
     opt = jax_sharding.make_optimizer("Adam", 1e-3)
-    step = jax_sharding.make_train_step(SHORT, opt)
+    step = jax_sharding.make_train_step(jax_config(SHORT), opt)
     p, state, want = params, opt.init(params), []
     for _ in range(3):
         p, state, loss, _ = step(p, state, x, y, jax.random.PRNGKey(3), 0.005)
@@ -230,7 +236,7 @@ def test_three_adam_steps_match_jax_train_step():
 
 
 def test_training_forward_draws_dropout_from_the_generator():
-    model = ClairNet.from_jax(_numpy(jax_init_params(jax.random.PRNGKey(4), NARROW)),
+    model = ClairNet.from_jax(_numpy(jax_init_params(jax.random.PRNGKey(4), jax_config(NARROW))),
                               NARROW, "cpu")
     x = torch.from_numpy(_batch(np.random.RandomState(6), 8)[0])
     with pytest.raises(ValueError, match="generator"):
@@ -248,8 +254,8 @@ def test_evaluate_model_confusion_matrices_match(tmp_path):
     from clair_tpu.pipeline.evaluate import evaluate_model as jax_evaluate
 
     path = _bin(tmp_path, n=40, block=10, seed=7)
-    params = _numpy(jax_init_params(jax.random.PRNGKey(5), NARROW))
-    want = jax_evaluate(params, NARROW, jax_bins.load_bin(path), batch_size=16,
+    params = _numpy(jax_init_params(jax.random.PRNGKey(5), jax_config(NARROW)))
+    want = jax_evaluate(params, jax_config(NARROW), jax_bins.load_bin(path), batch_size=16,
                         print_report=False)
     got = evaluate_model(params, NARROW, bins.load_bin(path), batch_size=16,
                          print_report=False, device="cpu")
@@ -271,14 +277,14 @@ def test_train_model_matches_jax_train_model(tmp_path, monkeypatch):
     path = _bin(tmp_path, positions=11)
     init = checkpoint_path(str(tmp_path / "init"), 0)
     save_checkpoint(init, init_params(torch.Generator().manual_seed(9), SHORT))
-    common = dict(model=SHORT, init_checkpoint=init, train_batch_size=18,
+    common = dict(init_checkpoint=init, train_batch_size=18,
                   val_batch_size=6, schedule="fixed", max_epochs=2,
                   evaluate_at_end=False, train_compute_dtype="float32",
                   decompress_workers=0)
     want = jax_train_model(jax_bins.load_bin(path), JaxTrainingConfig(
-        output_prefix=str(tmp_path / "jax"), **common))
+        model=jax_config(SHORT), output_prefix=str(tmp_path / "jax"), **common))
     got = train_model(bins.load_bin(path), TrainingConfig(
-        output_prefix=str(tmp_path / "port"), device="cpu", **common))
+        model=SHORT, output_prefix=str(tmp_path / "port"), device="cpu", **common))
 
     assert [e for _, e in got.training_losses] == [1, 2]
     for g, w in ((got.training_losses, want.training_losses),
