@@ -8,13 +8,15 @@ Phases, each printing its results and seconds:
 
 1. the card (nvidia-smi name and power limit); no CUDA device -> exit 1
 2. build every kernel in clair_tpu_torch/csrc/ (one nvcc each, all at once)
-3. the streaming forward kernel against its plain PyTorch version
+3. the streaming forward kernel against its plain PyTorch version, and at
+   every launchable (cluster size, rows per tile) at a small batch
    3b. the resident train pair (use_pallas_train_bilstm) against its plain
        versions and torch.autograd, and two backward runs bit for bit
    3c. use_pallas_bilstm's recurrence kernel against its plain version
    3d. the two-layer bilstm2 kernel against the two plain layers
 4. the streaming backward kernel against its plain PyTorch version, and
-   against torch.autograd of the plain forward, on the card
+   against torch.autograd of the plain forward, on the card; two runs at
+   the training shape of lstm2 bit for bit
 5. the full-width forward of examples/ont_production.ckpt on the card
    against the plain forward on the CPU, float32, batch 512
 6. three full-width Adam steps of make_train_step on the card (kernels)
@@ -33,7 +35,8 @@ Phases, each printing its results and seconds:
    the evaluation report, and both kernels' launch counts in each run
    8b. ``train_model`` under ``use_pallas_train_bilstm``, float32, on the
        same bin: the same checks, only the train pair launching
-9. times (CUDA events after warm-up) beside the card's name and power limit
+9. times (CUDA events after warm-up) beside the card's name and power limit,
+   and the backward's split by kernel (torch.profiler) at B = 10,000
    9b. the other kernels' times, and the train step under each training pair
    9c. bilstm2 as a library call on the vendored checkpoint's two layers
    9d. each kernel's bound (the least time the card could take for its
@@ -124,6 +127,10 @@ FORWARD_TOL = 1e-4          # probabilities, card vs CPU, float32
 STEP_RTOL = 3e-4            # train-step losses, card vs CPU, float32
 RECALL_FLOOR = PRECISION_FLOOR = 0.9
 TRAIN_ROWS, TRAIN_EPOCHS = 24_000, 2
+# row 2 run twice and compared bit for bit at the training shape of lstm2
+BITWISE_GEOMETRY = (10000, 33, 256, 128)
+# the forward at every launchable geometry: one small ragged batch
+GEOMETRY_BATCH = 100
 BWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 256, 128),
                   (13, 33, 256, 128), (8, 7, 16, 8))
 # the train pair at the training batch (10,000, the forward's 16-row tile)
@@ -245,7 +252,8 @@ def build_all():
     assert loaded, f"the port's native host library did not build or load:\n{native.BUILD_ERROR}"
     for name, lib in libs.items():
         report = build.BUILD_REPORTS.get(name)
-        regs = ([line.strip() for line in report.splitlines() if "registers" in line]
+        regs = ([line.strip() for line in report.splitlines()
+                 if "registers" in line or "spill stores" in line]
                 if report is not None else "built before this run")
         print(f"  {lib.relative_to(ROOT)}: {regs}")
 
@@ -278,6 +286,45 @@ def check_kernel(dev):
             else:
                 assert err_h <= BF16_TOL and err_c <= BF16_TOL, (err_h, err_c)
     assert bilstm_stream.launches == before + calls, "the kernel did not launch"
+    return max(max_err, check_forward_geometries(dev))
+
+
+def check_forward_geometries(dev):
+    """Phase 3, second part: the forward kernel at every (cluster size, rows
+    per tile) that launches (clair_bilstm_stream_fwd_geometry), at a small
+    ragged batch of each layer's width, in both dtypes, against the plain
+    version within F32_TOL / BF16_TOL (idle warps at the larger clusters,
+    where a race once hid)."""
+    from clair_tpu_torch.ops.bilstm_stream import (
+        FWD_CLUSTERS, FWD_ROWS, _stack_params, bilstm_stream_reference, forward_geometry,
+    )
+
+    max_err = 0.0
+    for layer, feat in LAYERS:
+        rs = np.random.RandomState(feat + 2)
+        params = lstm_params(rs, feat, HIDDEN, dev)
+        x = torch.tensor(rs.randn(GEOMETRY_BATCH, T_LEN, feat), dtype=torch.float32, device=dev)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            xd = x.to(dtype)
+            want_h, want_c = bilstm_stream_reference(params, xd)
+            launched, worst = [], 0.0
+            for cluster in FWD_CLUSTERS:
+                for rows in FWD_ROWS:
+                    got = forward_geometry(xd, *_stack_params(params, dtype), cluster, rows)
+                    if got is None:
+                        continue
+                    torch.cuda.synchronize()
+                    err = max((got[0].float() - want_h.float()).abs().max().item(),
+                              (got[1] - want_c).abs().max().item())
+                    assert err <= tol, (layer, str(dtype), cluster, rows, err)
+                    launched.append((cluster, rows))
+                    worst = max(worst, err)
+            assert launched, (layer, dtype)
+            if dtype == torch.float32:
+                max_err = max(max_err, worst)
+            print(f"  forward {layer} B={GEOMETRY_BATCH} {str(dtype)[6:]} at every launchable "
+                  f"(cluster, rows), {len(launched)} of {len(FWD_CLUSTERS) * len(FWD_ROWS)}: "
+                  f"max|d| {worst:.3e}; {launched}")
     return max_err
 
 
@@ -426,9 +473,16 @@ def check_backward_kernel(dev):
             h_out, c_out = bilstm_with_cell(_unstacked(w, u, bias), xd)
             got = bilstm_stream_backward(xd, w, u, bias, h_out, c_out, dh)
             calls += 1
+            line = []
+            if (b, t, f, h) == BITWISE_GEOMETRY:
+                # fixed-order partial sums, no atomics: the same bits every run
+                again = bilstm_stream_backward(xd, w, u, bias, h_out, c_out, dh)
+                calls += 1
+                for name, g, g2 in zip(names, got, again):
+                    assert torch.equal(g, g2), f"{name}: two runs differ"
+                line.append("bit-identical over two runs")
             want = bilstm_stream_backward_reference(xd, w, u, bias, h_out, c_out, dh)
             torch.cuda.synchronize()
-            line = []
             for name, g, r in zip(names, got, want):
                 assert g.shape == r.shape and g.dtype == r.dtype, name
                 g, r = g.float(), r.float()
@@ -671,6 +725,62 @@ def train_step_times(params, dev, dtype, **flags):
     return ms, TRAIN_BATCH_SIZE / ms * 1e3
 
 
+# row 2's kernels by part, from substrings of their names (the rest are the
+# wrapper's torch ops: U's transpose and the sum of the weight partials)
+BWD_PARTS = (("gate product", ("GateProblem",)), ("sweep", ("sweep",)),
+             ("weight sums", ("WeightSumProblem",)), ("dx", ("DxProblem",)),
+             ("float32 pieces", ("split_pieces",)))
+
+
+def backward_split(dev, batch=TRAIN_BATCH, iters=5, dtypes=(torch.bfloat16, torch.float32)):
+    """Row 2's device time by part (torch.profiler's key_averages over
+    ``iters`` calls after a warm-up), per layer (lstm1 without dx, as the
+    train step runs it) and dtype: {(layer, dtype): {part: ms per call}},
+    with "total" the CUDA-event time of the same calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clair_tpu_torch.ops.bilstm_stream import _forward, _stack_params, bilstm_stream_backward
+
+    split = {}
+    for layer, feat in LAYERS:
+        rs = np.random.RandomState(feat + 3)
+        p = lstm_params(rs, feat, HIDDEN, dev)
+        x = torch.tensor(rs.randn(batch, T_LEN, feat), dtype=torch.float32, device=dev)
+        dh32 = torch.tensor(rs.randn(batch, T_LEN, 2 * HIDDEN), dtype=torch.float32, device=dev)
+        for dtype in dtypes:
+            w, u, bias = _stack_params(p, dtype)
+            xd, dh = x.to(dtype), dh32.to(dtype)
+            h_out, c_out = _forward(xd, w, u, bias, with_cell=True)
+
+            def run():
+                return bilstm_stream_backward(xd, w, u, bias, h_out, c_out, dh,
+                                              need_dx=layer == "lstm2")
+
+            total = cuda_ms(run, iters)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    run()
+                torch.cuda.synchronize()
+            parts = {name: 0.0 for name, _ in BWD_PARTS}
+            parts["other (torch ops)"] = 0.0
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = e.self_cuda_time_total
+                if us <= 0:
+                    continue
+                part = next((name for name, keys in BWD_PARTS
+                             if any(k in e.key for k in keys)), "other (torch ops)")
+                parts[part] += us / 1e3 / iters
+                print(f"    {layer} {str(dtype)[6:]} {e.key[:90]}: {us / 1e3 / iters:.4f} ms "
+                      f"x{e.count // iters}")
+            parts["total"] = total
+            split[(layer, str(dtype)[6:])] = parts
+            print(f"  row 2 split {layer} B={batch} {str(dtype)[6:]}: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()), flush=True)
+    return split
+
+
 def new_kernel_times(params, dev, ms, plain_ms):
     """Phase 9b: the new kernels and their plain versions at the paths'
     shapes (CUDA events after a warm-up), and the train step at batch
@@ -771,8 +881,8 @@ def fwd_work(batch, feat, dtype, with_cell=False, stacked=False):
 
 
 def bwd_work(batch, feat, dtype, need_dx, stacked=False):
-    """(operations, bytes) of one layer's backward: the gates recomputed
-    from [x | h], dh carried through U, dW and dU, and dx where wanted;
+    """(operations, bytes) of one layer's backward: the gates from
+    [x | h], dh carried through U, dW and dU, and dx where wanted;
     x, h, c (float32), dh and the weights read once, dx and the float32
     dW, dU, db written once."""
     e = torch.tensor([], dtype=dtype).element_size()
@@ -1099,6 +1209,11 @@ def main():
         print(f"  train {dtype}: wall {wall:.2f} s (process start to exit), "
               f"{TRAIN_EPOCHS} epochs of {TRAIN_ROWS} rows")
     phase("9 times", t)
+
+    t = time.perf_counter()
+    print(f"row 2 by kernel on {card} (torch.profiler, mean of 5 calls after a warm-up):")
+    backward_split(dev)
+    phase("9a row 2's split", t)
 
     t = time.perf_counter()
     new_kernel_times(params, dev, ms, plain_ms)

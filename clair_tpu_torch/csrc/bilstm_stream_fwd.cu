@@ -116,60 +116,11 @@ struct Layout {
     }
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// The gate nonlinearities: float32 takes the accurate expf and tanhf (its
-// bound against the plain version is 2e-6); bf16, whose h is rounded to
-// 2^-8 every step, the hardware tanh (relative error 2^-11), with
-// sigmoid(v) = tanh(v / 2) / 2 + 1 / 2.
-__device__ __forceinline__ float tanh_approx(float v) {
-    float r;
-    asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
-    return r;
-}
-template <typename T>
-__device__ __forceinline__ float gate_tanh(float v) {
-    if constexpr (sizeof(T) == 2) return tanh_approx(v);
-    else return tanhf(v);
-}
-template <typename T>
-__device__ __forceinline__ float gate_sigmoid(float v) {
-    if constexpr (sizeof(T) == 2) return fmaf(0.5f, tanh_approx(0.5f * v), 0.5f);
-    else return sigmoid(v);
-}
-
 __device__ __forceinline__ void cluster_arrive() {
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1])
-                 : "r"(a));
-}
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ void zero(Acc& acc) {

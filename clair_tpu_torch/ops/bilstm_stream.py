@@ -18,31 +18,49 @@ A CUDA tensor goes to the kernels, or the wrappers raise. A CPU tensor goes
 to the plain versions, ``bilstm_stream_reference`` and
 ``bilstm_stream_backward_reference``, which are also the kernels' yardsticks
 on the card. ``bilstm_stream.launches`` and
-``bilstm_stream_backward.launches`` count each kernel's launches.
+``bilstm_stream_backward.launches`` count each call of a kernel's entry
+point (the backward's runs four kernels). ``split_bf16_product`` is the
+plain version of the backward kernel's split-bf16 tensor-core product, for
+the tests; ``forward_geometry`` runs the forward kernel at a given cluster
+size and rows per tile, for the checks of every geometry.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from clair_tpu_torch.models.bilstm import bilstm_with_cell
-from clair_tpu_torch.ops.build import launch, on_cuda
+from clair_tpu_torch.ops.build import entry, launch, on_cuda
 
 _FWD_KERNEL = "bilstm_stream_fwd"
 _BWD_KERNEL = "bilstm_stream_bwd"
 _DTYPES = (torch.float32, torch.bfloat16)
-# the backward's largest hidden size (one thread per hidden unit); the
-# forward takes any size whose weights fit a cluster's shared memory
+# the backward's largest hidden size (its FMA sweep: one thread per hidden
+# unit); the forward takes any size whose weights fit a cluster's shared
+# memory
 _MAX_HIDDEN = 1024
 # the backward's weight sums: rows per chunk of the split reduction, and
 # the most chunks (their float32 partials are summed by the caller)
 _SPLIT_ROWS = 2048
 _MAX_SPLITS = 32
-_DX_TILE = 128  # dx kernel: the grid's second axis counts 128-row tiles
+_ROW_TILE = 128  # the backward's products: the grid's second axis counts 128-row tiles
 _MAX_GRID_Y = 65535
+# the backward's sweep: rows a block, 0 for the kernel's choice from the
+# shape (tools/torch_stream_bwd_parts.py sets it to compare the others)
+_SWEEP_ROWS = 0
+# the bf16 pieces the backward kernel cuts a float32 operand of a product
+# into (csrc/bilstm_stream_bwd.cu, "Numerics"), by the compute dtype: 2 for
+# the dgates in bf16 mode, 3 for every float32 operand in float32 mode
+KERNEL_PIECES = {torch.bfloat16: 2, torch.float32: 3}
+# the forward kernel's cluster sizes and rows per tile
+# (csrc/bilstm_stream_fwd.cu: kMaxCluster, kItemRows up to 64)
+FWD_CLUSTERS = (1, 2, 4, 8)
+FWD_ROWS = (16, 32, 48, 64)
+_CUDA_ERROR_INVALID_VALUE = 1  # the forward's answer to a geometry that does not fit
 
 
 def bilstm_stream_reference(params: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,7 +69,60 @@ def bilstm_stream_reference(params: Dict, x: torch.Tensor) -> Tuple[torch.Tensor
     return bilstm_with_cell(params, x)
 
 
-def bilstm_stream_backward_reference(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
+def bf16_pieces(v: torch.Tensor, pieces: int) -> List[torch.Tensor]:
+    """v as ``pieces`` bf16 values (held in float32), each the rounding of
+    what the earlier ones leave: |v - sum| <= 2**(-8 * pieces) |v|."""
+    out, rest = [], v.float()
+    for _ in range(pieces):
+        piece = rest.to(torch.bfloat16).float()
+        out.append(piece)
+        rest = rest - piece
+    return out
+
+
+def split_bf16_product(equation: str, a: torch.Tensor, b: torch.Tensor, pieces: int):
+    """Plain version of the backward kernel's tensor-core product
+    (csrc/bilstm_stream_bwd.cu, "Numerics"): ``torch.einsum(equation, a, b)``
+    with a and b cut into ``pieces`` bf16 pieces each and the piece pairs
+    (i, j) with i + j < pieces summed in float32 (the product of two bf16
+    values is exact in float32). A bf16 operand's later pieces are 0, so it
+    goes as it is. For the tests; no kernel path calls it."""
+    out = None
+    for i, ai in enumerate(bf16_pieces(a, pieces)):
+        for j, bj in enumerate(bf16_pieces(b, pieces)):
+            if i + j < pieces:
+                term = torch.einsum(equation, ai, bj)
+                out = term if out is None else out + term
+    return out
+
+
+def _per_dir(t: torch.Tensor, hidden: int) -> torch.Tensor:
+    # (B, T, 2H) -> (2, B, T, H), direction first, original time index
+    batch, t_len = t.shape[:2]
+    return t.float().reshape(batch, t_len, 2, hidden).permute(2, 0, 1, 3)
+
+
+def _prev(t: torch.Tensor) -> torch.Tensor:
+    # direction 0's previous step is t-1, direction 1's is t+1 (it runs
+    # backward in time); zero state beyond the sequence edge
+    zero = torch.zeros_like(t[:, :, :1])
+    return torch.stack([torch.cat([zero[0], t[0, :, :-1]], dim=1),
+                        torch.cat([t[1, :, 1:], zero[1]], dim=1)])
+
+
+def gate_preactivations(x, w, u, b, h_out, product=torch.einsum) -> torch.Tensor:
+    """Every step's gate pre-activations at once, (2, B, T, 4H) float32:
+    x_t.W + h_prev.U + b per direction, h_prev the saved h_out shifted by
+    one step (direction 1 the other way), zero at the sequence edge. They
+    do not depend on the backward's carry; the kernel computes them before
+    its sweep."""
+    h_prev = _prev(_per_dir(h_out, u.shape[1]))
+    return (product("btf,dfg->dbtg", x.float(), w.float())
+            + product("dbtk,dkg->dbtg", h_prev, u.float()) + b.float()[:, None, None, :])
+
+
+def bilstm_stream_backward_reference(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True,
+                                     emulate_kernel=False):
     """Plain PyTorch version of the backward kernel: the reverse sweep of
     both directions, a loop over t with ``bmm`` for the carried product.
 
@@ -60,28 +131,21 @@ def bilstm_stream_backward_reference(x, w, u, b, h_out, c_out, dh_out, *, need_d
     and dh_out (B, T, 2H) in x.dtype. Returns (dx (B, T, F) in x.dtype or
     None, dw, du, db) with the parameter gradients float32, stacked per
     direction. Gates, dh, dc and the sums run in float32 from the
-    input-type values, as in the kernel."""
+    input-type values, as in the kernel. ``emulate_kernel``: every product
+    runs as the kernel's split-bf16 product (``split_bf16_product`` with
+    ``KERNEL_PIECES[x.dtype]``), the bf16 carry too (H <= 128: U in shared
+    memory); the float32 carry stays float32, as in the kernel."""
     batch, t_len, _ = x.shape
     hidden = u.shape[1]
     xf, wf, uf = x.float(), w.float(), u.float()
+    product = torch.einsum
+    if emulate_kernel:
+        product = functools.partial(split_bf16_product, pieces=KERNEL_PIECES[x.dtype])
+    carry_on_pieces = emulate_kernel and x.dtype == torch.bfloat16
 
-    def per_dir(t: torch.Tensor) -> torch.Tensor:
-        # (B, T, 2H) -> (2, B, T, H), direction first, original time index
-        return t.float().reshape(batch, t_len, 2, hidden).permute(2, 0, 1, 3)
-
-    h, c, dh_out = per_dir(h_out), per_dir(c_out), per_dir(dh_out)
-
-    def prev(t: torch.Tensor) -> torch.Tensor:
-        # direction 0's previous step is t-1, direction 1's is t+1 (it runs
-        # backward in time); zero state beyond the sequence edge
-        zero = torch.zeros_like(t[:, :, :1])
-        return torch.stack([torch.cat([zero[0], t[0, :, :-1]], dim=1),
-                            torch.cat([t[1, :, 1:], zero[1]], dim=1)])
-
-    h_prev, c_prev = prev(h), prev(c)
-    # every step's gates at once: they do not depend on the carry
-    gates = (torch.einsum("btf,dfg->dbtg", xf, wf)
-             + torch.einsum("dbtk,dkg->dbtg", h_prev, uf) + b.float()[:, None, None, :])
+    c, dh_out = _per_dir(c_out, hidden), _per_dir(dh_out, hidden)
+    h_prev, c_prev = _prev(_per_dir(h_out, hidden)), _prev(c)
+    gates = gate_preactivations(x, w, u, b, h_out, product)
     i, f, g, o = gates.chunk(4, dim=-1)
     i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
     tanh_c = torch.tanh(c)
@@ -106,13 +170,13 @@ def bilstm_stream_backward_reference(x, w, u, b, h_out, c_out, dh_out, *, need_d
                         dh * th * o_t * (1.0 - o_t)], dim=-1)
         dgates[0, :, ts[0]] = dg[0]
         dgates[1, :, ts[1]] = dg[1]
-        dh_carry = torch.bmm(dg, u_t)
+        dh_carry = product("dbg,dgj->dbj", dg, u_t) if carry_on_pieces else torch.bmm(dg, u_t)
         dc_carry = dc * f_t
 
-    dw = torch.einsum("btf,dbtg->dfg", xf, dgates)
-    du = torch.einsum("dbtk,dbtg->dkg", h_prev, dgates)
+    dw = product("btf,dbtg->dfg", xf, dgates)
+    du = product("dbtk,dbtg->dkg", h_prev, dgates)
     db = dgates.sum(dim=(1, 2))
-    dx = torch.einsum("dbtg,dfg->btf", dgates, wf).to(x.dtype) if need_dx else None
+    dx = product("dbtg,dfg->btf", dgates, wf).to(x.dtype) if need_dx else None
     return dx, dw, du, db
 
 
@@ -131,7 +195,8 @@ def _unstacked(w, u, b) -> Dict:
 
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+_FWD_GEOMETRY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 8
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> None:
@@ -173,11 +238,43 @@ def _forward(x, w, u, b, with_cell: bool):
     return h_out, c_out
 
 
+def forward_geometry(x, w, u, b, cluster: int, rows: int):
+    """The forward kernel on stacked parameters at a given cluster size and
+    rows per tile (``clair_bilstm_stream_fwd_geometry``), with the cell
+    states: (h_out, c_out), or None where that geometry does not fit (its
+    weights exceed the cluster's shared memory, or its warp items the
+    warps). Any other CUDA error raises. Counts no launch: it serves the
+    checks of every geometry, not a path."""
+    _check(x, w, u, b)
+    batch, t_len, feat = x.shape
+    hidden = u.shape[1]
+    h_out = torch.empty((batch, t_len, 2 * hidden), dtype=x.dtype, device=x.device)
+    c_out = torch.empty((batch, t_len, 2 * hidden), dtype=torch.float32, device=x.device)
+    fn = entry(_FWD_KERNEL, "clair_bilstm_stream_fwd_geometry", _FWD_GEOMETRY_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(), h_out.data_ptr(),
+                 c_out.data_ptr(), batch, t_len, feat, hidden, int(x.dtype == torch.bfloat16),
+                 cluster, rows, None, torch.cuda.current_stream().cuda_stream)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        return None
+    if err != 0:
+        raise RuntimeError(f"{_FWD_KERNEL} at cluster {cluster}, rows {rows}: CUDA error {err}")
+    return h_out, c_out
+
+
 def _split_rows(rows: int) -> Tuple[int, int]:
     """(chunks, rows per chunk) of the weight-sum reduction over B*T rows."""
     splits = max(1, min(_MAX_SPLITS, -(-rows // _SPLIT_ROWS)))
     per = -(-rows // splits)
     return -(-rows // per), per
+
+
+def _scratch_bytes(rows: int, feat: int, hidden: int) -> int:
+    """The float32 backward's scratch: three bf16 pieces of x (B*T, F),
+    h_out (B*T, 2H), W (2F, 4H), U (2H, 4H) and the dgates (2*B*T, 4H)."""
+    gates = 4 * hidden
+    return 2 * 3 * (rows * feat + rows * 2 * hidden + 2 * feat * gates + 2 * hidden * gates
+                    + 2 * rows * gates)
 
 
 def bilstm_stream_backward(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
@@ -198,16 +295,26 @@ def bilstm_stream_backward(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if hidden % 2:
-        raise ValueError(f"the backward kernel takes an even hidden size, not {hidden}")
+    if feat % 8 or hidden % 8:
+        # the products stage 16-byte chunks of [x | h] rows
+        raise ValueError(f"the backward kernel takes F and H in multiples of 8, not "
+                         f"F = {feat}, H = {hidden}")
     rows = batch * t_len
-    if -(-rows // _DX_TILE) > _MAX_GRID_Y:
-        raise ValueError(f"B*T = {rows} rows exceed the dx kernel's grid")
+    if -(-rows // _ROW_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"B*T = {rows} rows exceed the backward products' grid")
+    # the kernels read 16-byte chunks: an unaligned view is copied
+    x, w, u, h_out, c_out, dh_out = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                     for t in (x, w, u, h_out, c_out, dh_out))
     splits, rows_per_split = _split_rows(rows)
-    # U transposed, so the sweep's dh carry reads it coalesced (a layout
-    # copy of 2*H*4H values, not a product)
+    # U transposed, so the FMA sweep's dh carry reads it coalesced (a
+    # layout copy of 2*H*4H values, not a product)
     u_t = u.transpose(1, 2).contiguous()
+    # the gates; in bf16 the sweep overwrites each row in place with its
+    # dgates' two bf16 pieces after reading it
     dgates = torch.empty((2, batch, t_len, 4 * hidden), dtype=torch.float32, device=x.device)
+    # float32: the three bf16 pieces of x, h_out, W, U and the dgates
+    scratch = (torch.empty(_scratch_bytes(rows, feat, hidden), dtype=torch.uint8, device=x.device)
+               if x.dtype == torch.float32 else None)
     partial = torch.empty((splits, 2, feat + hidden + 1, 4 * hidden),
                           dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x) if need_dx else None
@@ -215,7 +322,9 @@ def bilstm_stream_backward(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
            x.data_ptr(), w.data_ptr(), u.data_ptr(), u_t.data_ptr(), b.data_ptr(),
            h_out.data_ptr(), c_out.data_ptr(), dh_out.data_ptr(),
            dgates.data_ptr(), partial.data_ptr(), dx.data_ptr() if need_dx else None,
-           batch, t_len, feat, hidden, splits, rows_per_split,
+           None if scratch is None else scratch.data_ptr(),
+           0 if scratch is None else scratch.numel(),
+           batch, t_len, feat, hidden, splits, rows_per_split, _SWEEP_ROWS,
            int(x.dtype == torch.bfloat16))
     bilstm_stream_backward.launches += 1
     # the per-direction sum of the chunks' partials, in a fixed order (the

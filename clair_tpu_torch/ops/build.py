@@ -103,18 +103,24 @@ def on_cuda(x: torch.Tensor, name: str) -> bool:
     return True
 
 
-def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device, *args) -> None:
-    """Call the C entry point ``symbol`` of ``csrc/<name>.cu`` with ``args``
-    and then the current stream of ``device``; raise if it returns a CUDA
-    error. Every pointer and the stream go as ``ctypes.c_void_p`` in
-    ``argtypes`` (a default int argument would cut a 64-bit pointer to 32
-    bits); the stream is appended to ``argtypes`` here."""
+def entry(name: str, symbol: str, argtypes: Sequence):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, returning an int,
+    with ``argtypes`` and then the stream as its argument types. Every
+    pointer and the stream go as ``ctypes.c_void_p`` (a default int argument
+    would cut a 64-bit pointer to 32 bits)."""
     fn = _ENTRIES.get((name, symbol))
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = [*argtypes, ctypes.c_void_p]
         _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device, *args) -> None:
+    """Call ``entry(name, symbol, argtypes)`` with ``args`` and then the
+    current stream of ``device``; raise if it returns a CUDA error."""
+    fn = entry(name, symbol, argtypes)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:

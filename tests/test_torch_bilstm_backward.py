@@ -16,8 +16,8 @@ import torch
 import clair_tpu.ops.pallas_bilstm_stream as PS
 from clair_tpu_torch.models.bilstm import bilstm_with_cell
 from clair_tpu_torch.ops.bilstm_stream import (
-    _stack_params, _unstacked, bilstm_stream, bilstm_stream_backward,
-    bilstm_stream_backward_reference,
+    KERNEL_PIECES, _stack_params, _unstacked, bilstm_stream, bilstm_stream_backward,
+    bilstm_stream_backward_reference, gate_preactivations, split_bf16_product,
 )
 
 # the geometries of tests/test_pallas_bilstm_stream.py
@@ -132,6 +132,101 @@ def test_bf16_gradients_track_float32(geometry):
         if name.endswith((".w", ".u")):
             # dW and dU were rounded to bf16 (the stacked parameters' dtype)
             assert torch.equal(g16, g16.to(torch.bfloat16).float()), name
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+def test_kernel_numerics_match_jax_grad_of_pallas_kernel(geometry, interpret_mode):
+    """The float32 backward with every product as the kernel computes it
+    (split_bf16_product: three bf16 pieces an operand, six passes, float32
+    sums; the carry in float32) against jax.grad of the Pallas kernel, at
+    the file's bound: the numeric design meets it before any card run."""
+    params, x, weight = _numpy_inputs(geometry, seed=8)
+    want_params, want_x = jax.grad(
+        lambda p, xx: jnp.sum(PS.bilstm_train_stream(p, xx) * weight), argnums=(0, 1))(
+        params, jnp.asarray(x))
+    w, u, b = _stack_params(_leaves(params, False), torch.float32)
+    xt = torch.from_numpy(x)
+    h_out, c_out = bilstm_with_cell(_unstacked(w, u, b), xt)
+    dx, dw, du, db = bilstm_stream_backward_reference(
+        xt, w, u, b, h_out, c_out, torch.from_numpy(weight), emulate_kernel=True)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_x), rtol=RTOL, atol=ATOL)
+    for i, d in enumerate(("fw", "bw")):
+        for k, got in (("w", dw[i]), ("u", du[i]), ("b", db[i])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want_params[d][k]),
+                                       rtol=RTOL, atol=ATOL, err_msg=f"{d}.{k}")
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES[:2])
+def test_kernel_numerics_bf16_track_float32(geometry):
+    """bf16 mode as the kernel computes it (bf16 x, h, W, U as they are;
+    the float32 dgates as two bf16 pieces, in every product and in the
+    carry): each gradient's cosine with the plain float32 backward is above
+    0.99, the bound of the bf16 test above."""
+    params, x, weight = _numpy_inputs(geometry, seed=9)
+    grads = {}
+    for dtype, emulate in ((torch.float32, False), (torch.bfloat16, True)):
+        w, u, b = _stack_params(_leaves(params, False), dtype)
+        xd, dh = torch.from_numpy(x).to(dtype), torch.from_numpy(weight).to(dtype)
+        h_out, c_out = bilstm_with_cell(_unstacked(w, u, b), xd)
+        grads[dtype] = bilstm_stream_backward_reference(xd, w, u, b, h_out, c_out, dh,
+                                                        emulate_kernel=emulate)
+    for name, g16, g32 in zip(("dx", "dw", "du", "db"), grads[torch.bfloat16],
+                              grads[torch.float32]):
+        assert torch.isfinite(g16.float()).all(), name
+        assert _cosine(g16.float(), g32) > 0.99, name
+
+
+@pytest.mark.parametrize("pieces", sorted(KERNEL_PIECES.values()))
+def test_split_product_keeps_the_bits_it_promises(pieces):
+    """split_bf16_product against the float64 product: two pieces a float32
+    operand keep ~16 bits of each product, three ~24; a bf16 operand goes
+    as it is (its later pieces are 0)."""
+    rs = np.random.RandomState(10)
+    a = torch.tensor(rs.randn(64, 96), dtype=torch.float32)
+    b = torch.tensor(rs.randn(96, 48), dtype=torch.float32)
+    exact = a.double() @ b.double()
+    scale = (a.double().abs() @ b.double().abs())
+    got = split_bf16_product("mk,kn->mn", a, b, pieces)
+    bound = {2: 3 * 2.0 ** -16, 3: 2.0 ** -21}[pieces]
+    assert got.dtype == torch.float32
+    assert ((got.double() - exact).abs() <= bound * scale).all()
+    a16 = a.to(torch.bfloat16).float()
+    one_piece_each = torch.einsum("mk,kn->mn", a16, b.to(torch.bfloat16).float())
+    assert torch.equal(split_bf16_product("mk,kn->mn", a16, b.to(torch.bfloat16).float(), pieces),
+                       one_piece_each)
+
+
+@pytest.mark.parametrize("geometry", [GEOMETRIES[3], GEOMETRIES[1]])
+def test_gate_preactivations_match_per_step_recompute(geometry, interpret_mode):
+    """The kernel's gates of every step at once, from h_out shifted by one
+    step (direction 1 the other way, zero at the edge), equal the TPU
+    kernel's per-step recompute (pallas_bilstm_stream.py:_bwd_kernel:
+    x_t.W + h_prev.U + b on the stacked layout, t = T-1 .. 0, h_prev masked
+    at t = 0), from the same saved forward."""
+    params, x, _ = _numpy_inputs(geometry, seed=11)
+    batch, t_len, _, hidden = geometry
+    _, (_, xs, h_s, _, _) = PS._bilstm_fwd(params, jnp.asarray(x))
+    bp = xs.shape[1] // 2
+    w, u, b = PS._stack_params(params, jnp.float32)
+    want = np.zeros((t_len, 2 * bp, 4 * hidden), np.float32)
+    for k in range(t_len):
+        t = t_len - 1 - k
+        for d in (0, 1):
+            rows = slice(d * bp, (d + 1) * bp)
+            h_prev = h_s[t - 1, rows] * (t > 0)
+            want[t, rows] = np.asarray(
+                jnp.dot(xs[t, rows], w[d], preferred_element_type=jnp.float32)
+                + jnp.dot(h_prev, u[d], preferred_element_type=jnp.float32) + b[d])
+    h_s = np.asarray(h_s)
+    h_out = np.concatenate([h_s[:, :batch].transpose(1, 0, 2),
+                            h_s[::-1, bp:bp + batch].transpose(1, 0, 2)], axis=-1)
+    wt, ut, bt = _stack_params(_leaves(params, False), torch.float32)
+    got = gate_preactivations(torch.from_numpy(x), wt, ut, bt,
+                              torch.from_numpy(np.ascontiguousarray(h_out))).numpy()
+    np.testing.assert_allclose(got[0], want[:, :batch].transpose(1, 0, 2),
+                               rtol=PLAIN_RTOL, atol=PLAIN_ATOL)
+    np.testing.assert_allclose(got[1], want[::-1, bp:bp + batch].transpose(1, 0, 2),
+                               rtol=PLAIN_RTOL, atol=PLAIN_ATOL)
 
 
 def test_no_input_gradient_unless_asked():

@@ -116,6 +116,7 @@ def main():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     results = {}
+    wrong = []
     for batch in batches:
         iters = 20 if batch <= 512 else 5
         for layer, feat in LAYERS:
@@ -155,6 +156,8 @@ def main():
                         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
                         ok = eh <= tol and ec <= tol
                         ms = cuda_ms(lambda: run(0), iters) if ok else float("nan")
+                        if not ok:
+                            wrong.append((tag, cluster, rows))
                         print(f"  cluster {cluster} rows {rows}: {ms:.4f} ms, max|dh| {eh:.2e} "
                               f"max|dc| {ec:.2e}{'' if ok else '  WRONG'}; {info[2]} resident, "
                               f"{info[3]} per direction")
@@ -164,6 +167,8 @@ def main():
             print(f"{tag}: parent {parent_before[tag]:.4f} / {parent_after[tag]:.4f} ms, "
                   f"this tree {ms:.4f} ms")
     print(json.dumps({"card": card, "wrapper_ms": results}))
+    if wrong:
+        raise SystemExit(f"WRONG at {len(wrong)} geometries: {wrong}")
 
 
 if __name__ == "__main__":
