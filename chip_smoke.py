@@ -11,7 +11,9 @@ Phases, each printing its results and seconds:
 3. the streaming forward kernel against its plain PyTorch version, and at
    every launchable (cluster size, rows per tile) at a small batch
    3b. the resident train pair (use_pallas_train_bilstm) against its plain
-       versions and torch.autograd, and two backward runs bit for bit
+       versions and torch.autograd, and two backward runs bit for bit, at
+       every TRAIN_GEOMETRIES geometry; a CUDA width the backward does not
+       take raises
    3c. use_pallas_bilstm's recurrence kernel against its plain version
    3d. the two-layer bilstm2 kernel against the two plain layers
 4. the streaming backward kernel against its plain PyTorch version, and
@@ -35,8 +37,9 @@ Phases, each printing its results and seconds:
    the evaluation report, and both kernels' launch counts in each run
    8b. ``train_model`` under ``use_pallas_train_bilstm``, float32, on the
        same bin: the same checks, only the train pair launching
-9. times (CUDA events after warm-up) beside the card's name and power limit,
-   and the backward's split by kernel (torch.profiler) at B = 10,000
+9. times (CUDA events after warm-up) beside the card's name and power limit
+   9a. the two backwards (rows 2 and 6) split by kernel (torch.profiler) at
+       B = 10,000
    9b. the other kernels' times, and the train step under each training pair
    9c. bilstm2 as a library call on the vendored checkpoint's two layers
    9d. each kernel's bound (the least time the card could take for its
@@ -383,6 +386,16 @@ def check_train_pair(dev):
     launched = launched_since(before)
     assert launched["bilstm_train"] == len(TRAIN_GEOMETRIES), launched
     assert launched["bilstm_train_backward"] == 2 * len(TRAIN_GEOMETRIES), launched
+    # no fallback to the plain version for a CUDA tensor: a width whose
+    # 16-byte chunks the backward's products cannot stage raises
+    xs, w, u, b, dh = stacked_inputs((4, 5, 12, 8), dev, 7)
+    h_out, c_out = bilstm_train_forward(xs, w, u, b)
+    try:
+        bilstm_train_backward(xs, w, u, b, h_out, c_out, dh)
+    except ValueError as refused:
+        print(f"  train backward at F = 12 on the card raises: {refused}")
+    else:
+        raise AssertionError("the train backward took F = 12 on the card")
     return errs
 
 
@@ -725,59 +738,81 @@ def train_step_times(params, dev, dtype, **flags):
     return ms, TRAIN_BATCH_SIZE / ms * 1e3
 
 
-# row 2's kernels by part, from substrings of their names (the rest are the
-# wrapper's torch ops: U's transpose and the sum of the weight partials)
+# the backwards' kernels by part, from substrings of their names (the rest
+# are the wrapper's torch ops: U's transpose and the sum of the weight
+# partials); row 2's problems are GateProblem, ..., row 6's StackedGateProblem
 BWD_PARTS = (("gate product", ("GateProblem",)), ("sweep", ("sweep",)),
              ("weight sums", ("WeightSumProblem",)), ("dx", ("DxProblem",)),
              ("float32 pieces", ("split_pieces",)))
 
 
-def backward_split(dev, batch=TRAIN_BATCH, iters=5, dtypes=(torch.bfloat16, torch.float32)):
-    """Row 2's device time by part (torch.profiler's key_averages over
-    ``iters`` calls after a warm-up), per layer (lstm1 without dx, as the
-    train step runs it) and dtype: {(layer, dtype): {part: ms per call}},
-    with "total" the CUDA-event time of the same calls."""
+def device_parts(run, iters, label):
+    """run()'s device time by part of BWD_PARTS (torch.profiler's
+    key_averages over ``iters`` calls after a warm-up), ms per call, with
+    "total" the CUDA-event time of the same calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    from clair_tpu_torch.ops.bilstm_stream import _forward, _stack_params, bilstm_stream_backward
+    total = cuda_ms(run, iters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    parts = {name: 0.0 for name, _ in BWD_PARTS}
+    parts["other (torch ops)"] = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us <= 0:
+            continue
+        part = next((name for name, keys in BWD_PARTS
+                     if any(k in e.key for k in keys)), "other (torch ops)")
+        parts[part] += us / 1e3 / iters
+        print(f"    {label} {e.key[:90]}: {us / 1e3 / iters:.4f} ms x{e.count // iters}")
+    parts["total"] = total
+    print(f"  {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()), flush=True)
+    return parts
 
+
+def backward_split(dev, batch=TRAIN_BATCH, iters=5, dtypes=(torch.bfloat16, torch.float32),
+                   pair=STREAM_PAIR):
+    """A backward's device time by part (``device_parts``), per layer (lstm1
+    without dx, as the train step runs it) and dtype: row 2 (``pair`` =
+    STREAM_PAIR) in ``dtypes``, or row 6 (TRAIN_PAIR, float32 only) on the
+    stacked layout. {(layer, dtype): {part: ms per call}}."""
+    from clair_tpu_torch.ops.bilstm_stream import _forward, _stack_params, bilstm_stream_backward
+    from clair_tpu_torch.ops.bilstm_train import bilstm_train_backward, bilstm_train_forward
+
+    train = pair == TRAIN_PAIR
     split = {}
     for layer, feat in LAYERS:
-        rs = np.random.RandomState(feat + 3)
-        p = lstm_params(rs, feat, HIDDEN, dev)
-        x = torch.tensor(rs.randn(batch, T_LEN, feat), dtype=torch.float32, device=dev)
-        dh32 = torch.tensor(rs.randn(batch, T_LEN, 2 * HIDDEN), dtype=torch.float32, device=dev)
-        for dtype in dtypes:
-            w, u, bias = _stack_params(p, dtype)
-            xd, dh = x.to(dtype), dh32.to(dtype)
-            h_out, c_out = _forward(xd, w, u, bias, with_cell=True)
+        need_dx = layer == "lstm2"  # lstm1's input takes no gradient
+        if not train:
+            rs = np.random.RandomState(feat + 3)
+            p = lstm_params(rs, feat, HIDDEN, dev)
+            x = torch.tensor(rs.randn(batch, T_LEN, feat), dtype=torch.float32, device=dev)
+            dh32 = torch.tensor(rs.randn(batch, T_LEN, 2 * HIDDEN), dtype=torch.float32,
+                                device=dev)
+        for dtype in (torch.float32,) if train else dtypes:
+            if train:
+                xs, w, u, bias, dh = stacked_inputs((batch, T_LEN, feat, HIDDEN), dev, feat + 5)
+                h_out, c_out = bilstm_train_forward(xs, w, u, bias)
 
-            def run():
-                return bilstm_stream_backward(xd, w, u, bias, h_out, c_out, dh,
-                                              need_dx=layer == "lstm2")
+                def run():
+                    return bilstm_train_backward(xs, w, u, bias, h_out, c_out, dh,
+                                                 need_dx=need_dx)
+            else:
+                w, u, bias = _stack_params(p, dtype)
+                xd, dh = x.to(dtype), dh32.to(dtype)
+                h_out, c_out = _forward(xd, w, u, bias, with_cell=True)
 
-            total = cuda_ms(run, iters)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    run()
-                torch.cuda.synchronize()
-            parts = {name: 0.0 for name, _ in BWD_PARTS}
-            parts["other (torch ops)"] = 0.0
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = e.self_cuda_time_total
-                if us <= 0:
-                    continue
-                part = next((name for name, keys in BWD_PARTS
-                             if any(k in e.key for k in keys)), "other (torch ops)")
-                parts[part] += us / 1e3 / iters
-                print(f"    {layer} {str(dtype)[6:]} {e.key[:90]}: {us / 1e3 / iters:.4f} ms "
-                      f"x{e.count // iters}")
-            parts["total"] = total
-            split[(layer, str(dtype)[6:])] = parts
-            print(f"  row 2 split {layer} B={batch} {str(dtype)[6:]}: "
-                  + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()), flush=True)
+                def run():
+                    return bilstm_stream_backward(xd, w, u, bias, h_out, c_out, dh,
+                                                  need_dx=need_dx)
+
+            name = str(dtype)[6:]
+            split[(layer, name)] = device_parts(
+                run, iters, f"row {6 if train else 2} split {layer} B={batch} {name}")
     return split
 
 
@@ -1211,9 +1246,11 @@ def main():
     phase("9 times", t)
 
     t = time.perf_counter()
-    print(f"row 2 by kernel on {card} (torch.profiler, mean of 5 calls after a warm-up):")
+    print(f"rows 2 and 6 by kernel on {card} (torch.profiler, mean of 5 calls after a "
+          f"warm-up):")
     backward_split(dev)
-    phase("9a row 2's split", t)
+    backward_split(dev, pair=TRAIN_PAIR)
+    phase("9a the backwards' split", t)
 
     t = time.perf_counter()
     new_kernel_times(params, dev, ms, plain_ms)

@@ -42,8 +42,9 @@
 //     fixed row chunks whose float32 partials the caller adds in a fixed
 //     order: deterministic, no atomics.
 // (d) dx = [dgates_0 | dgates_1] . [W_0 ; W_1]^T, written once in x's type.
-// (a), (c) and (d) are one templated tensor-core product (mma_product):
-// 128 x 128 output tiles, 8 warps of 64 x 32, depth 32 a stage, every
+// (a), (c) and (d) are one templated tensor-core product (mma_product, in
+// mma_product.cuh with split_pieces and the float32 sweep (b), shared with
+// the resident training backward, bilstm_train.cu): 128 x 128 output tiles, 8 warps of 64 x 32, depth 32 a stage, every
 // operand's bf16 pieces staged by cp.async (zero-filled past every edge)
 // into a ring of three buffers, two in flight while one is multiplied,
 // fragments by ldmatrix (.trans where the operand's rows run along the
@@ -94,75 +95,11 @@
 // carry on the tensor cores), wgmma and TMA in the products, and one read
 // of dgates feeding both dx and the weight sums.
 
-#include "lstm_cell.cuh"
+#include "mma_product.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;
-constexpr size_t kSmemLimit = 227 * 1024;
-
-// An operand's rows as bf16 pieces: piece p of row r starts at
-// base + (r * pieces + p) * stride elements (bf16 mode's x, h, W and U are
-// one piece, the tensors themselves). at() gives piece 0; piece p is
-// `stride` * p elements further.
-struct Pieces {
-    const bf16* base;
-    int stride, pieces;
-    __device__ const bf16* at(size_t row, int col, int& piece_stride) const {
-        piece_stride = stride;
-        return base + row * pieces * static_cast<size_t>(stride) + col;
-    }
-};
-
-// ---- float32 operands as three bf16 pieces --------------------------------
-
-// dst (rows, 3, cols) from src (rows, cols): p0 = bf16(v), p1 = bf16(v - p0),
-// p2 = bf16(v - p0 - p1), each the rounding of what the earlier ones leave.
-__global__ void split_pieces(const float* __restrict__ src, bf16* __restrict__ dst, size_t n,
-                             int cols) {
-    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
-         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-        const size_t r = i / cols;
-        const int c = static_cast<int>(i - r * cols);
-        float rest = src[i];
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-            const bf16 piece = __float2bfloat16_rn(rest);
-            dst[(r * 3 + p) * cols + c] = piece;
-            rest -= __bfloat162float(piece);
-        }
-    }
-}
-
-cudaError_t launch_split(const void* src, bf16* dst, size_t rows, int cols, cudaStream_t stream) {
-    const size_t n = rows * cols;
-    const size_t blocks = (n + kThreads - 1) / kThreads;
-    split_pieces<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
-        static_cast<const float*>(src), dst, n, cols);
-    return cudaGetLastError();
-}
-
-// ---- (a), (c), (d): the tensor-core product -------------------------------
-
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kStages = 3;                                // cp.async ring of stages
-constexpr int kWarpsN = 4;                                // 2 x 4 warps
-constexpr int kWM = 64, kWN = 32;                         // a warp's tile
-constexpr int kMT = kWM / 16, kNT = kWN / 8;              // its m16 and n8 tiles
-
-// One piece of an operand's tile in shared memory, bf16. K-major: rows run
-// along the output index (m or n), columns along the reduction; otherwise
-// rows run along the reduction. Rows are padded by 16 bytes (ldmatrix
-// without bank conflicts).
-template <bool KMajor, int Extent>
-struct Tile {
-    static constexpr int kRows = KMajor ? Extent : kBK;
-    static constexpr int kCols = KMajor ? kBK : Extent;
-    static constexpr int kPitch = kCols + 8;
-    static constexpr int kElems = kRows * kPitch;
-};
+// ---- (a), (c), (d): the problems of the shared product (mma_product.cuh) ---
 
 // A problem supplies its operands' layouts and pieces, the 16-byte chunk of
 // piece p of each operand at a (tile row, tile column) in global indices
@@ -284,190 +221,6 @@ struct DxProblem {
     __device__ void store_db(int, float) const {}
 };
 
-template <class P>
-struct ProductLayout {
-    using LA = Tile<P::kAK, kBM>;
-    using LB = Tile<P::kBKMajor, kBN>;
-    static constexpr int kStageA = P::kPA * LA::kElems;  // one stage of A's pieces
-    static constexpr int kStageB = P::kPB * LB::kElems;
-    static constexpr size_t kBytes = kStages * sizeof(bf16) * (kStageA + kStageB);
-    // bf16 mode (at most three pieces in all) fits two blocks an SM
-    static constexpr int kMinBlocks = P::kPA + P::kPB <= 3 ? 2 : 1;
-};
-
-// Start the cp.async of one stage of an operand's pieces: rows x columns of
-// 16-byte chunks, piece 0 of each from chunk(tile row, tile column, stride)
-// in global indices and piece p `stride` * p elements further, zeroed where
-// it is null or past the reduction's end.
-template <class L, bool KMajor, int NPieces, class Chunk>
-__device__ __forceinline__ void load_stage(bf16* dst, Chunk chunk, int out0, int k0, int k_end,
-                                           const void* any) {
-    constexpr int row_chunks = L::kCols / 8;
-    for (int i = threadIdx.x; i < L::kRows * row_chunks; i += kThreads) {
-        const int r = i / row_chunks, c = (i - r * row_chunks) * 8;
-        const int row = KMajor ? out0 + r : k0 + r;
-        const int col = KMajor ? k0 + c : out0 + c;
-        const int red = KMajor ? col : row;
-        int stride = 0;
-        const bf16* src = red < k_end ? chunk(row, col, stride) : nullptr;
-#pragma unroll
-        for (int p = 0; p < NPieces; ++p)
-            cp_async16_or_zero(dst + p * L::kElems + r * L::kPitch + c,
-                               src != nullptr ? src + p * stride : nullptr, any);
-    }
-}
-
-// The A fragments of this warp's four m16 tiles at depth kk of a bf16 tile
-// (pitch P): K-major [m][k] by ldmatrix, else [k][m] by ldmatrix.trans.
-template <bool KMajor, int P>
-__device__ __forceinline__ void a_fragments(const bf16* tile, int wm, int kk, unsigned (&f)[kMT][4]) {
-    const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-        const int m = wm + mt * 16;
-        if constexpr (KMajor)
-            ldmatrix_x4(f[mt], tile + (m + r + (q & 1) * 8) * P + kk + (q >> 1) * 8);
-        else
-            ldmatrix_x4_trans(f[mt], tile + (kk + r + (q >> 1) * 8) * P + m + (q & 1) * 8);
-    }
-}
-
-// The B fragments of this warp's four n8 tiles, two per ldmatrix: K-major
-// [n][k], else [k][n] transposed.
-template <bool KMajor, int P>
-__device__ __forceinline__ void b_fragments(const bf16* tile, int wn, int kk, unsigned (&f)[kNT][2]) {
-    const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
-#pragma unroll
-    for (int nt = 0; nt < kNT; nt += 2) {
-        const int n = wn + nt * 8;
-        unsigned v[4];
-        if constexpr (KMajor)
-            ldmatrix_x4(v, tile + (n + (q >> 1) * 8 + r) * P + kk + (q & 1) * 8);
-        else
-            ldmatrix_x4_trans(v, tile + (kk + (q & 1) * 8 + r) * P + n + (q >> 1) * 8);
-        f[nt][0] = v[0];
-        f[nt][1] = v[1];
-        f[nt + 1][0] = v[2];
-        f[nt + 1][1] = v[3];
-    }
-}
-
-// grid = (ceil(n_extent / kBN), ceil(m_extent / kBM), problem's z), kThreads.
-template <class P>
-__global__ void __launch_bounds__(kThreads, ProductLayout<P>::kMinBlocks) mma_product(const P p) {
-    using S = ProductLayout<P>;
-    using LA = typename S::LA;
-    using LB = typename S::LB;
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* a_stages = reinterpret_cast<bf16*>(smem);
-    bf16* b_stages = a_stages + kStages * S::kStageA;
-
-    const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-    const int k_begin = p.k_begin(), k_end = p.k_end();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = (warp / kWarpsN) * kWM, wn = (warp % kWarpsN) * kWN;
-    const bool sums_db = P::kDb && blockIdx.y == 0 && threadIdx.x < kBN;
-    auto a_chunk = [&](int row, int col, int& stride) { return p.a(row, col, stride); };
-    auto b_chunk = [&](int row, int col, int& stride) { return p.bm(row, col, stride); };
-    const void* any = p.base();  // a device address for the zero-filled chunks
-    constexpr int kPasses = P::kPA > P::kPB ? P::kPA : P::kPB;  // piece pairs i + j below this
-
-    float acc[kMT][kNT][4];
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-    float db = 0.0f;
-
-    // a ring of kStages buffers: stage s + kStages - 1 is loading while s is
-    // multiplied; one (possibly empty) commit group a stage
-    auto stage = [&](int s) {
-        const int buf = s % kStages, k0 = k_begin + s * kBK;
-        if (k0 < k_end) {
-            load_stage<LA, P::kAK, P::kPA>(a_stages + buf * S::kStageA, a_chunk, m0, k0, k_end, any);
-            load_stage<LB, P::kBKMajor, P::kPB>(b_stages + buf * S::kStageB, b_chunk, n0, k0, k_end, any);
-        }
-        cp_async_commit();
-    };
-
-    const int n_stages = k_begin < k_end ? (k_end - k_begin + kBK - 1) / kBK : 0;
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) stage(s);
-    for (int s = 0; s < n_stages; ++s) {
-        cp_async_wait<kStages - 2>();  // stage s has landed for this thread
-        __syncthreads();  // ... for every thread, and every read of stage s - 1 is done
-        stage(s + kStages - 1);        // into the buffer of stage s - 1
-        const int buf = s % kStages;
-        const bf16* a_s = a_stages + buf * S::kStageA;
-        const bf16* b_s = b_stages + buf * S::kStageB;
-        if constexpr (P::kDb) {
-            // B is [m][g] here: column threadIdx.x's sum over the stage, its
-            // pieces added first
-            if (sums_db) {
-                for (int r = 0; r < kBK; ++r) {
-                    float v = 0.0f;
-#pragma unroll
-                    for (int q = 0; q < P::kPB; ++q)
-                        v += __bfloat162float(b_s[q * LB::kElems + r * LB::kPitch + threadIdx.x]);
-                    db += v;
-                }
-            }
-        }
-#pragma unroll
-        for (int kk = 0; kk < kBK; kk += 16) {
-            unsigned bfr[P::kPB][kNT][2];
-#pragma unroll
-            for (int j = 0; j < P::kPB; ++j)
-                b_fragments<P::kBKMajor, LB::kPitch>(b_s + j * LB::kElems, wn, kk, bfr[j]);
-#pragma unroll
-            for (int i = 0; i < P::kPA; ++i) {
-                unsigned af[kMT][4];
-                a_fragments<P::kAK, LA::kPitch>(a_s + i * LA::kElems, wm, kk, af);
-#pragma unroll
-                for (int j = 0; j < P::kPB; ++j) {
-                    if (i + j >= kPasses) continue;  // the pairs below 2^-24 of the product
-#pragma unroll
-                    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-                        for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[j][nt]);
-                }
-            }
-        }
-    }
-    cp_async_wait<0>();  // no copy outlives the block
-
-    const int gid = lane >> 2, tq = lane & 3;
-    const int m_extent = p.m_extent(), n_extent = p.n_extent();
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-            const int n = n0 + wn + nt * 8 + 2 * tq;
-            if (n >= n_extent) continue;  // n_extent is even: n + 1 is real too
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int m = m0 + wm + mt * 16 + gid + h * 8;
-                if (m < m_extent) p.store(m, n, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-            }
-        }
-    if (sums_db && n0 + static_cast<int>(threadIdx.x) < n_extent) p.store_db(n0 + threadIdx.x, db);
-}
-
-template <class P>
-cudaError_t launch_product(const P& p, int n_extent, int m_extent, int z, cudaStream_t stream) {
-    constexpr size_t smem = ProductLayout<P>::kBytes;
-    static_assert(smem <= kSmemLimit, "product tiles exceed shared memory");
-    if (smem > 48 * 1024) {
-        const cudaError_t err = allow_dynamic_smem(mma_product<P>, smem);
-        if (err != cudaSuccess) return err;
-    }
-    const dim3 grid((n_extent + kBN - 1) / kBN, (m_extent + kBM - 1) / kBM, z);
-    mma_product<P><<<grid, kThreads, smem, stream>>>(p);
-    return cudaGetLastError();
-}
-
 // ---- (b): the reverse sweep ------------------------------------------------
 
 struct SweepArgs {
@@ -479,70 +232,20 @@ struct SweepArgs {
     const void* u;        // (2, H, 4H) in T
     const void* ut;       // (2, 4H, H) in T, U transposed (the L2 carry)
     int batch, t_len, hidden;
-};
-
-// One (row, unit)'s step: its gates, c_t, c_prev and dh_out.
-struct Cell {
-    float a[4], c, c_prev, dh_out;
-};
-
-// The values of (row, t, unit j) into v; with_c false takes c_t from
-// v.c_prev, the last step's c_prev (the sweep walks t one step at a time).
-template <typename T>
-__device__ __forceinline__ void load_cell(const SweepArgs& s, int dir, int row, int t, int j,
-                                          Cell& v, bool with_c) {
-    const float c_t = v.c_prev;
-    v = Cell{};
-    if (row >= s.batch) return;
-    const int hidden = s.hidden, gates = 4 * hidden;
-    const size_t rows = static_cast<size_t>(s.batch) * s.t_len;
-    const size_t m = static_cast<size_t>(row) * s.t_len + t;
-    const float* g = s.gates + (dir * rows + m) * gates + j;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) v.a[q] = g[q * hidden];
-    const size_t at = m * 2 * hidden + dir * hidden + j;
-    v.c = with_c ? s.c_out[at] : c_t;
-    v.dh_out = to_float(static_cast<const T*>(s.dh_out)[at]);
-    const int tp = dir == 0 ? t - 1 : t + 1;
-    if (tp >= 0 && tp < s.t_len) v.c_prev = s.c_out[at + (tp - t) * 2 * static_cast<size_t>(hidden)];
-}
-
-// The cell's backward (pallas_bilstm_stream.py:110-136): dgates of the
-// step from its gate pre-activations a, c_t, c_prev and dh = dh_out +
-// dh_carry; dc carries to the previous step. The gate functions of the
-// forward's dtype (gate_sigmoid, gate_tanh).
-template <typename T>
-__device__ __forceinline__ void cell_backward(const float (&a)[4], float c, float c_prev,
-                                              float dh, float& dc, float (&dg)[4]) {
-    const float i_g = gate_sigmoid<T>(a[0]);
-    const float f_g = gate_sigmoid<T>(a[1]);
-    const float g_g = gate_tanh<T>(a[2]);
-    const float o_g = gate_sigmoid<T>(a[3]);
-    const float tanh_c = gate_tanh<T>(c);
-    const float dcv = dc + dh * o_g * (1.0f - tanh_c * tanh_c);
-    dg[0] = dcv * g_g * i_g * (1.0f - i_g);
-    dg[1] = dcv * c_prev * f_g * (1.0f - f_g);
-    dg[2] = dcv * i_g * (1.0f - g_g * g_g);
-    dg[3] = dh * tanh_c * o_g * (1.0f - o_g);
-    dc = dcv * f_g;
-}
-
-// The dgates of (row, t, unit j) as the sweep's bf16 pieces.
-__device__ __forceinline__ void store_pieces(const SweepArgs& s, int dir, int row, int t, int j,
-                                             const float (&dg)[4]) {
-    const int gates = 4 * s.hidden;
-    const size_t m = static_cast<size_t>(dir) * s.batch * s.t_len + static_cast<size_t>(row) * s.t_len + t;
-    bf16* out = s.pieces + m * s.n_pieces * gates + j;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-        float rest = dg[g];
-        for (int p = 0; p < s.n_pieces; ++p) {
-            const bf16 piece = __float2bfloat16_rn(rest);
-            out[p * gates + g * s.hidden] = piece;
-            rest -= __bfloat162float(piece);
-        }
+    // the FMA sweep's layout policy (mma_product.cuh): direction 0 sweeps
+    // t = T-1 .. 0, direction 1 t = 0 .. T-1, each keeping its time index
+    __device__ int time(int dir, int step) const { return dir == 0 ? t_len - 1 - step : step; }
+    __device__ size_t row(int dir, int r, int t) const {
+        return (static_cast<size_t>(dir) * batch + r) * t_len + t;
     }
-}
+    __device__ size_t cell(int dir, int r, int t) const {
+        return (static_cast<size_t>(r) * t_len + t) * 2 * hidden + dir * hidden;
+    }
+    __device__ int prev(int dir, int t) const {
+        const int tp = dir == 0 ? t - 1 : t + 1;
+        return tp < t_len ? tp : -1;
+    }
+};
 
 // bf16 sweep, U in shared memory and the carry on the tensor cores; the
 // dgates go out as two pieces IN PLACE of the row's float32 gates (the same
@@ -737,105 +440,6 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_sweep_mma(const SweepA
         __syncthreads();  // dh_carry complete; every read of the pieces done
     }
 }
-
-// The sweep with the carry in float32 FMA: float32, and bf16 at hidden
-// sizes whose U does not fit one block. blockDim.x == H, a thread owning one
-// unit of every row; gridDim = (ceil(batch / R), 2). U^T streams through
-// shared memory in chunks of `FmaLayout::chunk` rows (cp.async, two
-// buffers), read by every row of the block. A step reads its R rows' gates
-// before any thread writes their pieces (in bf16 the pieces overwrite the
-// gates in place). (Loading the next step's gates during the carry, as the
-// tensor-core sweep does, ran 8-10% slower here on an H100.)
-template <typename T, int R>
-struct FmaLayout {
-    int chunk;  // rows of U^T a stage: 32, fewer where 32 rows pass 32 KB
-    size_t ut_off, total;
-    __host__ __device__ explicit FmaLayout(int hidden) {
-        chunk = 32;
-        while (chunk > 4 && static_cast<size_t>(chunk) * hidden * sizeof(T) > 32 * 1024) chunk /= 2;
-        ut_off = sizeof(float) * R * 5 * static_cast<size_t>(hidden);  // dh_s (R, H), dg_s (R, 4H)
-        total = ut_off + 2 * static_cast<size_t>(chunk) * hidden * sizeof(T);
-    }
-};
-
-template <typename T, int R>
-__global__ void bilstm_bwd_sweep_fma(const SweepArgs s) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int hidden = blockDim.x, gates = 4 * hidden;
-    const FmaLayout<T, R> L(hidden);
-    const int j = threadIdx.x;
-    const int dir = blockIdx.y;
-    const int row0 = blockIdx.x * R;
-    float* dh_s = reinterpret_cast<float*>(smem);  // (R, H): dh_carry
-    float* dg_s = dh_s + R * hidden;               // (R, 4H): this step's dgates
-    T* ut_s = reinterpret_cast<T*>(smem + L.ut_off);  // 2 x (chunk, H) of U^T
-    const T* utd = static_cast<const T*>(s.ut) + static_cast<size_t>(dir) * gates * hidden;
-    constexpr int per = 16 / sizeof(T);
-    const int chunk_copies = L.chunk * hidden / per;
-    auto stage_ut = [&](int c, int buf) {
-        const T* src = utd + static_cast<size_t>(c) * L.chunk * hidden;
-        T* dst = ut_s + static_cast<size_t>(buf) * L.chunk * hidden;
-        for (int i = j; i < chunk_copies; i += hidden) cp_async16(dst + i * per, src + i * per);
-        cp_async_commit();
-    };
-
-    float dc[R];
-    Cell cell[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        dc[r] = 0.0f;
-        dh_s[r * hidden + j] = 0.0f;
-        cell[r].c_prev = 0.0f;
-    }
-    for (int step = 0; step < s.t_len; ++step) {
-        const int t = dir == 0 ? s.t_len - 1 - step : step;
-        stage_ut(0, 0);  // the carry's first chunk, in flight during the cell's backward
-#pragma unroll
-        for (int r = 0; r < R; ++r) load_cell<T>(s, dir, row0 + r, t, j, cell[r], step == 0);
-        __syncthreads();  // every gate of the step is read; dh_s and dg_s are free
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            float dg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if (row0 + r < s.batch) {
-                cell_backward<T>(cell[r].a, cell[r].c, cell[r].c_prev,
-                                 cell[r].dh_out + dh_s[r * hidden + j], dc[r], dg);
-                store_pieces(s, dir, row0 + r, t, j, dg);
-            }
-#pragma unroll
-            for (int g = 0; g < 4; ++g) dg_s[r * gates + g * hidden + j] = dg[g];
-        }
-
-        // dh_carry[r][j] = sum_k dgates[r][k] * U[j][k], U^T chunk by chunk
-        float carry[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) carry[r] = 0.0f;
-        const int chunks = gates / L.chunk;
-        for (int c = 0; c < chunks; ++c) {
-            if (c + 1 < chunks) {
-                stage_ut(c + 1, (c + 1) & 1);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();  // chunk c (and at c = 0 dg_s) complete
-            const T* us = ut_s + static_cast<size_t>(c & 1) * L.chunk * hidden + j;
-            const float* dgk = dg_s + c * L.chunk;
-            for (int k = 0; k < L.chunk; k += 4) {
-                const float u0 = to_float(us[k * hidden]), u1 = to_float(us[(k + 1) * hidden]);
-                const float u2 = to_float(us[(k + 2) * hidden]), u3 = to_float(us[(k + 3) * hidden]);
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    const float4 d = *reinterpret_cast<const float4*>(dgk + r * gates + k);
-                    carry[r] = fmaf(d.w, u3, fmaf(d.z, u2, fmaf(d.y, u1, fmaf(d.x, u0, carry[r]))));
-                }
-            }
-            __syncthreads();  // every read of this chunk's buffer is done
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) dh_s[r * hidden + j] = carry[r];
-    }
-}
-
 // Whether the bf16 sweep holds U in shared memory (H <= 128): decided by the
 // shape alone.
 template <typename T>
@@ -852,21 +456,11 @@ cudaError_t launch_sweep_mma(const SweepArgs& s, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-template <typename T, int R>
-cudaError_t launch_sweep_fma(const SweepArgs& s, cudaStream_t stream) {
-    const size_t smem = FmaLayout<T, R>(s.hidden).total;
-    if (smem > kSmemLimit) return cudaErrorInvalidValue;
-    const cudaError_t err = allow_dynamic_smem(bilstm_bwd_sweep_fma<T, R>, smem);
-    if (err != cudaSuccess) return err;
-    bilstm_bwd_sweep_fma<T, R><<<dim3((s.batch + R - 1) / R, 2), dim3(s.hidden), smem, stream>>>(s);
-    return cudaGetLastError();
-}
-
 // Rows a sweep block: the tensor-core sweep 16, or 32 from B = 4096 (on an
 // H100 at B = 10,000 32 rows ran 7% faster than 16; at B = 512, 16 rows
-// 1.1-1.8x faster than 32); the FMA sweep 4, or 8 from B = 4096 (8 ran
-// 14-19% faster than 4, and 16 rows slower than both, at B = 10,000).
-// `rows` > 0 takes that number where the sweep has it (16 or 32; 4 or 8).
+// 1.1-1.8x faster than 32); the FMA sweep fma_sweep_rows (4, or 8 from
+// B = 4096). `rows` > 0 takes that number where the sweep has it (16 or 32;
+// 4 or 8).
 template <typename T>
 cudaError_t launch_sweep(const SweepArgs& s, int rows, cudaStream_t stream) {
     if (sweep_on_tensor_cores<T>(s.hidden)) {
@@ -875,7 +469,7 @@ cudaError_t launch_sweep(const SweepArgs& s, int rows, cudaStream_t stream) {
         if (rows == 32) return launch_sweep_mma<32>(s, stream);
         return cudaErrorInvalidValue;
     }
-    if (rows <= 0) rows = s.batch >= 4096 ? 8 : 4;
+    if (rows <= 0) rows = fma_sweep_rows(s.batch);
     if (rows == 4) return launch_sweep_fma<T, 4>(s, stream);
     if (rows == 8) return launch_sweep_fma<T, 8>(s, stream);
     return cudaErrorInvalidValue;

@@ -20,36 +20,64 @@
 // below kLargeBatch, where 16-row tiles would leave SMs idle); only xs,
 // h_out and c_out cross device memory, once each.
 //
-// Backward: the TPU kernel's reverse sweep. Per step it recomputes the gates
-// from [x_t | h_{t-1}], forms
-//   dgates = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i(1-g^2), dh*tanh(c)*o(1-o)]
-// with dh = dh_out_t + dh_carry and dc = dc_carry + dh*o*(1 - tanh^2 c), and
-// gives [dx_t | dh_carry] = dgates.[W ; U]^T and dc_carry = dc*f; dh and dc
-// stay in shared memory across the T steps.
-// The weight gradients grow inside the kernel, as the TPU kernel's grow in
-// VMEM beside its sweep, but blocks here run in no order, so the grid is
-// persistent: blocks_per_dir blocks per direction (the caller gives the SM
-// count, so with two blocks an SM every block is resident), each walking
-// the row tiles tile = blockIdx.x, + gridDim.x, ... of its direction into a
-// partial slot of its own, (F + H + 1) x 4H float32 (dW, dU, db). During a
-// tile's sweep the step's dgates go to the block's own scratch, one tile
-// deep (T x kBwdRows x 4H floats); after the sweep the block adds
-// [x_t | h_{t-1} | 1]^T.dgates over the tile's T x kBwdRows rows into its
-// slot, an 8 x 8 register-tiled product. The caller sums the slots of each
-// direction in a fixed order: no atomics, the same bits every run.
-// Bytes at lstm2 (F = 256, H = 128), 132 SMs, any batch: slots
-// 2 x 132 x 788 KB = 208 MB, scratch 2 x 132 x 1.08 MB = 285 MB; a
-// whole-batch dgates buffer would be 2 x B x T x 4H x 4 = 1.35 GB at
-// B = 10,000.
-// The sweep re-reads [W ; U] and its transpose (a layout copy made by the
-// caller, so both products read coalesced) from L2 every step, each value
-// used by kBwdRows rows: ~1.6 MB of L2 reads a step and block at lstm2,
-// the bound that 16-row tiles halve against 8. Float32 FMA throughout; no
-// tensor cores (wgmma), TMA or clusters yet.
+// Backward: the TPU kernel's reverse sweep, built from the streaming
+// backward's parts (mma_product.cuh: the split-bf16 tensor-core product and
+// the float32 FMA sweep). Four kernels behind one launch of the entry
+// point, on the stacked layout: row n of 2B is direction n / B, and in the
+// products a direction's T*B rows are m = t*B + r, at row (t*2 + d)*B + r
+// of the (T, 2B, .) tensors (m / B by a float reciprocal with a
+// correction, exact below 2^24 rows).
+// (pieces) xs, h_out, W and U split once into three bf16 pieces in scratch.
+// (a) gates[t][n] = [xs_t | h_{t-1}][n] . [W_d ; U_d] + b_d for every step at
+//     once (h_{t-1} is the saved h_out, zero at t = 0): one product over
+//     each direction's T*B rows (grid.z = d), written as float32 into a
+//     (T, 2B, 4H) buffer.
+// (b) the reverse sweep t = T-1 .. 0 over all 2B rows. It reads an entry's
+//     gates once with c_t, c_{t-1} and dh_out_t, forms
+//       dgates = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i(1-g^2), dh*tanh(c)*o(1-o)]
+//     with dh = dh_out_t + dh_carry and dc = dc_carry + dh*o*(1 - tanh^2 c),
+//     carries dh_carry = dgates.U^T (float32 FMA, U^T streamed through
+//     shared memory) and dc_carry = dc*f, and writes dgates as three bf16
+//     pieces to scratch. 4 rows a block, 8 from B = 4096.
+// (c) dW, dU (A^T . dgates, A = [xs_t | h_{t-1}]) and db over fixed chunks of
+//     each direction's T*B rows into float32 partials that the caller sums
+//     in a fixed order: no atomics, the same bits every run.
+// (d) only where dx is wanted: dx[t][n] = dgates[t][n] . W_d^T, the
+//     reduction over the row's own direction's 4H (the caller un-reverses
+//     rows B.. and adds the halves).
+// Numerics: every product takes its float32 operands as three bf16 pieces,
+// six passes, float32 sums (float32-level products; two pieces missed the
+// TPU kernel's gradients by 2.8x on the CPU emulation); the carry and the
+// cell's backward stay float32.
+// What bounds each kernel (B = 10,000, T = 33, H = 128; PERF.md has the
+// measured split, tools/torch_stream_bwd_parts.py --pair train):
+// - (a), (c), (d): tensor-core operations, 2 * 2B*T * (F + H) * 4H for (a)
+//   and for (c), 2 * 2B*T * 4H * F for (d), times six passes; and bytes:
+//   the float32 gates (1.35 GB, written by (a), read by (b)) and the
+//   dgates' pieces (2.03 GB at lstm2, written by (b), read by (c) and (d)).
+// - (b): the serial chain of T steps (a step's loads, the elementwise
+//   backward, 4H * H FMA of the carry a row, U^T read from L2 every step).
+// - (pieces): bytes, the float32 operands read once and 1.5 times their
+//   bytes written.
+// Measured, ms at B = 10,000 on an H100 80GB HBM3 at 700 W:
+//   the earlier design (a persistent grid recomputing the gates on the
+//     serial chain in float32 FMA, re-reading [W ; U] and its transpose
+//     from L2 every step for 16 rows, weight sums by an 8 x 8
+//     register-tiled FMA product): 63.02 both layers (CUDA events,
+//     tools/torch_step_compare.py --kernels);
+//   this design, split by kernel (tools/torch_stream_bwd_parts.py --pair
+//     train, torch.profiler device time): lstm1 gates 2.603, sweep 5.442,
+//     sums 3.375, pieces 0.443 (11.89 the call); lstm2 gates 5.083, sweep
+//     5.262, sums 4.735, dx 3.355, pieces 1.059 (20.13 the call).
+// Left for later, as for the streaming backward: float32 U^T held across a
+// thread-block cluster (the sweep, a third of the time, on the tensor
+// cores), wgmma and TMA in the products, one read of dgates feeding both dx
+// and the weight sums.
 
-#include "lstm_cell.cuh"
+#include "mma_product.cuh"
 
 namespace {
+
 
 // forward: rows per block, by batch. On an H100 (700 W), 16 rows against 4
 // ran lstm1/lstm2 in 5.0/10.9 ms against 6.2/14.2 at B = 10,000, and in
@@ -58,14 +86,6 @@ namespace {
 constexpr int kFwdRowsSmall = 4;
 constexpr int kFwdRowsLarge = 16;
 constexpr int kLargeBatch = 4096;
-// backward: rows per tile; 16 rows and two blocks an SM (registers capped at
-// 128) ran lstm2 at B = 10,000 in 44.4 ms against 80.2 for 8 rows and one
-// block (H100, 700 W)
-constexpr int kBwdRows = 16;
-constexpr int kThreads = 256;  // backward: threads per block
-// the weight-sum product: output tiles of kWA rows of [x | h | 1] by kWG gates
-constexpr int kWA = 64;
-constexpr int kWG = 256;
 
 // xs: (T, 2B, F); w: (2, F, 4H); u: (2, H, 4H); b: (2, 4H).
 // h_out, c_out: (T, 2B, H). blockDim.x == H, gridDim = (ceil(B / kFwdRows), 2).
@@ -162,207 +182,213 @@ __global__ void train_fwd(const float* __restrict__ xs, const float* __restrict_
     }
 }
 
-// Row m = t * kBwdRows + r of the tile's A = [x_t | h_{t-1} | 1], column a
-// (zero past the last column, for rows past the batch, and for h_{-1}).
-__device__ __forceinline__ float a_value(const float* __restrict__ xs,
-                                         const float* __restrict__ h_out, int m, int a,
-                                         size_t dir_row0, int live_rows, size_t n2, int feat,
-                                         int hidden) {
-    const int t = m / kBwdRows;
-    const int r = m - t * kBwdRows;
-    if (r >= live_rows) return 0.0f;
-    const size_t row = dir_row0 + r;
-    if (a < feat) return xs[(t * n2 + row) * feat + a];
-    if (a < feat + hidden) {
-        return t > 0 ? h_out[((t - 1) * n2 + row) * hidden + (a - feat)] : 0.0f;
+// ---- the backward's problems on the stacked layout ------------------------
+
+// [xs_t | h_{t-1}] of direction dir: row m of the direction's T*B rows is
+// (t, r) = (m / B, m % B), at row (t * 2 + dir) * B + r of the (T, 2B, .)
+// tensors; column k of F + H.
+struct StackedXH {
+    Pieces x, h;
+    int batch, t_len, feat, hidden;
+    float inv_b;  // 1 / B: m / B by a float product (m < 2^24), corrected
+    __device__ int rows() const { return batch * t_len; }
+    // the step t of row m, and in r its row of the direction
+    __device__ int step(int m, int& r) const {
+        int t = __float2int_rd(__int2float_rn(m) * inv_b);
+        r = m - t * batch;
+        if (r < 0) {
+            --t;
+            r += batch;
+        } else if (r >= batch) {
+            ++t;
+            r -= batch;
+        }
+        return t;
     }
-    return a == feat + hidden ? 1.0f : 0.0f;
+    __device__ size_t row_of(int t, int dir, int r) const {
+        return (static_cast<size_t>(t) * 2 + dir) * batch + r;
+    }
+    __device__ size_t global(int m, int dir) const {
+        int r;
+        const int t = step(m, r);
+        return row_of(t, dir, r);
+    }
+    __device__ const bf16* at(int m, int k, int dir, int& ps) const {
+        if (m >= rows() || k >= feat + hidden) return nullptr;
+        int r;
+        const int t = step(m, r);
+        if (k < feat) return x.at(row_of(t, dir, r), k, ps);
+        if (t == 0) return nullptr;  // h_{-1} = 0
+        return h.at(row_of(t - 1, dir, r), k - feat, ps);
+    }
+};
+
+// (a) gates[t][n][g] = [xs_t | h_{t-1}][n] . [W ; U][:, g] + b[g]; grid.z = dir.
+struct StackedGateProblem {
+    static constexpr bool kAK = true, kBKMajor = false;  // A [m][k]; B [k][g]
+    static constexpr int kPA = 3, kPB = 3;
+    static constexpr bool kDb = false;
+    StackedXH xh;
+    Pieces w, u;
+    const float* b;
+    float* out;  // (T, 2B, 4H)
+    int gates;
+    __device__ int dir() const { return blockIdx.z; }
+    __device__ const void* base() const { return xh.x.base; }
+    __device__ int k_begin() const { return 0; }
+    __device__ int k_end() const { return xh.feat + xh.hidden; }
+    __device__ int m_extent() const { return xh.rows(); }
+    __device__ int n_extent() const { return gates; }
+    __device__ const bf16* a(int m, int k, int& ps) const { return xh.at(m, k, dir(), ps); }
+    __device__ const bf16* bm(int k, int g, int& ps) const {
+        if (g >= gates) return nullptr;
+        if (k < xh.feat) return w.at(dir() * xh.feat + k, g, ps);
+        if (k < xh.feat + xh.hidden) return u.at(dir() * xh.hidden + k - xh.feat, g, ps);
+        return nullptr;
+    }
+    __device__ void store(int m, int g, float v0, float v1) const {
+        const float* bd = b + dir() * gates;
+        *reinterpret_cast<float2*>(out + xh.global(m, dir()) * gates + g) =
+            make_float2(v0 + bd[g], v1 + bd[g + 1]);
+    }
+    __device__ void store_db(int, float) const {}
+};
+
+// (c) partial[split][dir][a][g] = sum over the chunk's rows m of the
+// direction of A[m][a] * dgates[m][g], and row F + H the chunk's sum of
+// dgates; grid.z = split * 2 + dir.
+struct StackedWeightSumProblem {
+    static constexpr bool kAK = false, kBKMajor = false;  // A [m][a]; B [m][g]
+    static constexpr int kPA = 3, kPB = 3;
+    static constexpr bool kDb = true;
+    StackedXH xh;
+    Pieces dg;  // (T, 2B) rows of the dgates' pieces
+    float* partial;
+    int gates, rows_per_split;
+    __device__ int dir() const { return blockIdx.z & 1; }
+    __device__ const void* base() const { return dg.base; }
+    __device__ int k_begin() const { return (blockIdx.z >> 1) * rows_per_split; }
+    __device__ int k_end() const { return min(xh.rows(), k_begin() + rows_per_split); }
+    __device__ int m_extent() const { return xh.feat + xh.hidden; }
+    __device__ int n_extent() const { return gates; }
+    __device__ const bf16* a(int m, int k, int& ps) const { return xh.at(m, k, dir(), ps); }
+    __device__ const bf16* bm(int m, int g, int& ps) const {
+        if (m >= xh.rows() || g >= gates) return nullptr;
+        return dg.at(xh.global(m, dir()), g, ps);
+    }
+    __device__ float* slab() const {
+        return partial + static_cast<size_t>(blockIdx.z) * (xh.feat + xh.hidden + 1) * gates;
+    }
+    __device__ void store(int a, int g, float v0, float v1) const {
+        *reinterpret_cast<float2*>(slab() + static_cast<size_t>(a) * gates + g) = make_float2(v0, v1);
+    }
+    __device__ void store_db(int g, float v) const {
+        slab()[static_cast<size_t>(xh.feat + xh.hidden) * gates + g] = v;
+    }
+};
+
+// (d) dx[t][n][f] = sum over g of dgates[t][n][g] * W[dir][f][g], the
+// reduction over the row's own direction's 4H gates; grid.z = dir.
+struct StackedDxProblem {
+    static constexpr bool kAK = true, kBKMajor = true;  // A [m][g]; B [f][g]
+    static constexpr int kPA = 3, kPB = 3;
+    static constexpr bool kDb = false;
+    StackedXH xh;  // the row map
+    Pieces dg, w;
+    float* dx;  // (T, 2B, F)
+    int gates;
+    __device__ int dir() const { return blockIdx.z; }
+    __device__ const void* base() const { return dg.base; }
+    __device__ int k_begin() const { return 0; }
+    __device__ int k_end() const { return gates; }
+    __device__ int m_extent() const { return xh.rows(); }
+    __device__ int n_extent() const { return xh.feat; }
+    __device__ const bf16* a(int m, int g, int& ps) const {
+        if (m >= xh.rows()) return nullptr;
+        return dg.at(xh.global(m, dir()), g, ps);
+    }
+    __device__ const bf16* bm(int f, int g, int& ps) const {
+        if (f >= xh.feat) return nullptr;
+        return w.at(dir() * xh.feat + f, g, ps);
+    }
+    __device__ void store(int m, int f, float v0, float v1) const {
+        *reinterpret_cast<float2*>(dx + xh.global(m, dir()) * xh.feat + f) = make_float2(v0, v1);
+    }
+    __device__ void store_db(int, float) const {}
+};
+
+// (b) the float32 FMA sweep's layout policy (mma_product.cuh): both
+// directions sweep t = T-1 .. 0, an entry (dir, r, t) at row (t*2 + dir)*B + r.
+struct StackedSweep {
+    const float* gates;   // (T, 2B, 4H) float32 pre-activations
+    bf16* pieces;         // dgates out: (T, 2B) rows of n_pieces x 4H bf16
+    int n_pieces;
+    const float* c_out;   // (T, 2B, H)
+    const void* dh_out;   // (T, 2B, H) float32
+    const void* ut;       // (2, 4H, H) float32, U transposed
+    int batch, t_len, hidden;
+    __device__ int time(int, int step) const { return t_len - 1 - step; }
+    __device__ size_t row(int dir, int r, int t) const {
+        return (static_cast<size_t>(t) * 2 + dir) * batch + r;
+    }
+    __device__ size_t cell(int dir, int r, int t) const { return row(dir, r, t) * hidden; }
+    __device__ int prev(int, int t) const { return t - 1; }
+};
+
+// The scratch: three bf16 pieces of xs (T*2B, F), h_out (T*2B, H), W (2F, 4H),
+// U (2H, 4H) and the dgates (T*2B, 4H).
+size_t scratch_elems(size_t rows2, int feat, int hidden) {
+    const size_t gates = 4 * static_cast<size_t>(hidden);
+    return 3 * (rows2 * feat + rows2 * hidden + 2 * feat * gates + 2 * hidden * gates +
+                rows2 * gates);
 }
 
-// xs: (T, 2B, F); h_out, c_out, dh_out: (T, 2B, H); wu: (2, F + H, 4H), W
-// over U; wut: (2, 4H, F + H), its transpose; b: (2, 4H).
-// dgates: (2, gridDim.x, T * kBwdRows, 4H) scratch; partial:
-// (2, gridDim.x, F + H + 1, 4H), zero on entry; dx: (T, 2B, F) or null.
-// blockDim.x == kThreads, gridDim = (blocks_per_dir, 2).
-__global__ void __launch_bounds__(kThreads, 2)
-train_bwd(const float* __restrict__ xs, const float* __restrict__ h_out,
-          const float* __restrict__ c_out, const float* __restrict__ dh_out,
-          const float* __restrict__ wu, const float* __restrict__ wut,
-          const float* __restrict__ b, float* __restrict__ dgates,
-          float* __restrict__ partial, float* __restrict__ dx,
-          int batch, int t_len, int feat, int hidden) {
-    extern __shared__ __align__(16) float smem[];
-    __shared__ __align__(16) float a_st[kDepth][kWA];  // weight-sum stages
-    __shared__ __align__(16) float d_st[kDepth][kWG];
+cudaError_t launch_bwd(const void* xs, const void* w, const void* u, const void* ut,
+                       const void* b, const void* h_out, const void* c_out, const void* dh_out,
+                       void* gate_buf, void* partial, void* dx, void* scratch,
+                       long long scratch_bytes, int batch, int t_len, int feat, int hidden,
+                       int splits, int rows_per_split, cudaStream_t stream) {
+    const size_t rows2 = 2 * static_cast<size_t>(batch) * t_len;  // every row of (T, 2B)
+    const int rows = batch * t_len;                                 // a direction's
     const int gates = 4 * hidden;
-    const int width = feat + hidden;
-    const int dir = blockIdx.y;
-    const int tid = threadIdx.x;
-    const size_t n2 = 2 * static_cast<size_t>(batch);
-    float* a_s = smem;                        // (width, kBwdRows): [x_t | h_{t-1}], a-major
-    float* g_s = a_s + width * kBwdRows;      // (kBwdRows, 4H): gates, then dgates
-    float* dh_s = g_s + kBwdRows * gates;     // (kBwdRows, H): dh carry
-    float* dc_s = dh_s + kBwdRows * hidden;   // (kBwdRows, H): dc carry
+    if (feat % 8 || hidden % 8 || scratch == nullptr ||
+        static_cast<size_t>(scratch_bytes) < sizeof(bf16) * scratch_elems(rows2, feat, hidden))
+        return cudaErrorInvalidValue;
+    cudaError_t err = cudaSuccess;
+    bf16* at = static_cast<bf16*>(scratch);
+    auto carve = [&](const void* src, size_t n_rows, int cols, Pieces& out) {
+        out = Pieces{at, cols, 3};
+        if (src != nullptr && err == cudaSuccess) err = launch_split(src, at, n_rows, cols, stream);
+        at += 3 * n_rows * cols;
+    };
+    Pieces xp, hp, wp, up, dgp;
+    carve(xs, rows2, feat, xp);
+    carve(h_out, rows2, hidden, hp);
+    carve(w, 2 * static_cast<size_t>(feat), gates, wp);
+    carve(u, 2 * static_cast<size_t>(hidden), gates, up);
+    carve(nullptr, rows2, gates, dgp);  // written by the sweep
+    if (err != cudaSuccess) return err;
+    const StackedXH xh{xp, hp, batch, t_len, feat, hidden, 1.0f / batch};
+    float* gate_out = static_cast<float*>(gate_buf);
 
-    const float* wud = wu + static_cast<size_t>(dir) * width * gates;
-    const float* wutd = wut + static_cast<size_t>(dir) * gates * width;
-    const float* bd = b + dir * gates;
-    const size_t slot_index = static_cast<size_t>(dir) * gridDim.x + blockIdx.x;
-    float* dg_blk = dgates + slot_index * t_len * kBwdRows * gates;
-    float* slot = partial + slot_index * (width + 1) * gates;
-    const int tiles = (batch + kBwdRows - 1) / kBwdRows;
+    const StackedGateProblem gp{xh, wp, up, static_cast<const float*>(b), gate_out, gates};
+    err = launch_product(gp, gates, rows, 2, stream);
+    if (err != cudaSuccess) return err;
 
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int row0 = tile * kBwdRows;
-        const int live_rows = min(kBwdRows, batch - row0);
-        const size_t dir_row0 = static_cast<size_t>(dir) * batch + row0;
-        for (int idx = tid; idx < kBwdRows * hidden; idx += kThreads) {
-            dh_s[idx] = 0.0f;
-            dc_s[idx] = 0.0f;
-        }
+    const StackedSweep s{gate_out, const_cast<bf16*>(dgp.base), 3,
+                         static_cast<const float*>(c_out), dh_out, ut, batch, t_len, hidden};
+    err = fma_sweep_rows(batch) == 8 ? launch_sweep_fma<float, 8>(s, stream)
+                                     : launch_sweep_fma<float, 4>(s, stream);
+    if (err != cudaSuccess) return err;
 
-        for (int t = t_len - 1; t >= 0; --t) {
-            // [x_t | h_{t-1}] of the tile's rows (zero past the batch and at t = 0)
-            for (int idx = tid; idx < kBwdRows * width; idx += kThreads) {
-                const int r = idx / width;
-                const int a = idx - r * width;
-                float v = 0.0f;
-                if (r < live_rows) {
-                    const size_t row = dir_row0 + r;
-                    if (a < feat) {
-                        v = xs[(t * n2 + row) * feat + a];
-                    } else if (t > 0) {
-                        v = h_out[((t - 1) * n2 + row) * hidden + (a - feat)];
-                    }
-                }
-                a_s[a * kBwdRows + r] = v;
-            }
-            __syncthreads();  // a_s filled; the last step's reads of g_s done
+    const StackedWeightSumProblem wsp{xh, dgp, static_cast<float*>(partial), gates, rows_per_split};
+    err = launch_product(wsp, gates, feat + hidden, splits * 2, stream);
+    if (err != cudaSuccess || dx == nullptr) return err;
 
-            // recompute the gates: one column g per pass, all rows of the tile
-            for (int g = tid; g < gates; g += kThreads) {
-                float acc[kBwdRows];
-                const float bias = bd[g];
-#pragma unroll
-                for (int r = 0; r < kBwdRows; ++r) acc[r] = bias;
-                for (int a = 0; a < width; ++a) {
-                    const float wv = wud[static_cast<size_t>(a) * gates + g];
-#pragma unroll
-                    for (int q = 0; q < kBwdRows / 4; ++q) {
-                        const float4 v =
-                            *reinterpret_cast<const float4*>(&a_s[a * kBwdRows + 4 * q]);
-                        acc[4 * q] = fmaf(v.x, wv, acc[4 * q]);
-                        acc[4 * q + 1] = fmaf(v.y, wv, acc[4 * q + 1]);
-                        acc[4 * q + 2] = fmaf(v.z, wv, acc[4 * q + 2]);
-                        acc[4 * q + 3] = fmaf(v.w, wv, acc[4 * q + 3]);
-                    }
-                }
-#pragma unroll
-                for (int r = 0; r < kBwdRows; ++r) g_s[r * gates + g] = acc[r];
-            }
-            __syncthreads();  // every gate of the step in g_s
-
-            // dgates in place of the gates; the dc carry
-            for (int idx = tid; idx < kBwdRows * hidden; idx += kThreads) {
-                const int r = idx / hidden;
-                const int j = idx - r * hidden;
-                float* gr = g_s + r * gates;
-                if (r >= live_rows) {
-                    gr[j] = gr[hidden + j] = gr[2 * hidden + j] = gr[3 * hidden + j] = 0.0f;
-                    continue;
-                }
-                const size_t at = (t * n2 + dir_row0 + r) * hidden + j;
-                const float i_g = sigmoid(gr[j]);
-                const float f_g = sigmoid(gr[hidden + j]);
-                const float g_g = tanhf(gr[2 * hidden + j]);
-                const float o_g = sigmoid(gr[3 * hidden + j]);
-                const float c_t = c_out[at];
-                const float c_p = t > 0 ? c_out[at - n2 * hidden] : 0.0f;
-                const float tanh_c = tanhf(c_t);
-                const float dh = dh_out[at] + dh_s[idx];
-                const float dcv = dc_s[idx] + dh * o_g * (1.0f - tanh_c * tanh_c);
-                gr[j] = dcv * g_g * i_g * (1.0f - i_g);
-                gr[hidden + j] = dcv * c_p * f_g * (1.0f - f_g);
-                gr[2 * hidden + j] = dcv * i_g * (1.0f - g_g * g_g);
-                gr[3 * hidden + j] = dh * tanh_c * o_g * (1.0f - o_g);
-                dc_s[idx] = dcv * f_g;
-            }
-            __syncthreads();  // the step's dgates complete; dh_s reads done
-
-            // [dx_t | dh_carry] = dgates . [W ; U]^T: one column a per pass
-            for (int a = tid; a < width; a += kThreads) {
-                if (a < feat && dx == nullptr) continue;
-                float acc[kBwdRows];
-#pragma unroll
-                for (int r = 0; r < kBwdRows; ++r) acc[r] = 0.0f;
-                for (int k = 0; k < gates; ++k) {
-                    const float wv = wutd[static_cast<size_t>(k) * width + a];
-#pragma unroll
-                    for (int r = 0; r < kBwdRows; ++r) acc[r] = fmaf(g_s[r * gates + k], wv, acc[r]);
-                }
-                if (a < feat) {
-#pragma unroll
-                    for (int r = 0; r < kBwdRows; ++r) {
-                        if (r < live_rows) dx[(t * n2 + dir_row0 + r) * feat + a] = acc[r];
-                    }
-                } else {
-#pragma unroll
-                    for (int r = 0; r < kBwdRows; ++r) dh_s[r * hidden + (a - feat)] = acc[r];
-                }
-            }
-            // the step's dgates to the block's scratch, row m = t * kBwdRows + r
-            float* dg_t = dg_blk + static_cast<size_t>(t) * kBwdRows * gates;
-            for (int idx = tid; idx < kBwdRows * gates; idx += kThreads) dg_t[idx] = g_s[idx];
-        }
-        __syncthreads();  // the tile's dgates in scratch
-
-        // slot += A^T . dgates over the tile's T * kBwdRows rows, A = [x | h_{t-1} | 1];
-        // thread (ta, tb) keeps an 8 x 8 register tile of each kWA x kWG output tile
-        const int rows = t_len * kBwdRows;
-        const int ta = tid / 32;
-        const int tb = tid % 32;
-        for (int a0 = 0; a0 < width + 1; a0 += kWA) {
-            for (int g0 = 0; g0 < gates; g0 += kWG) {
-                float acc[8][8];
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-                for (int m0 = 0; m0 < rows; m0 += kDepth) {
-                    // a stage: kDepth x kWA values of A (2 a thread), kDepth x kWG
-                    // dgates (2 float4 a thread); rows is a multiple of kDepth
-#pragma unroll
-                    for (int q = 0; q < 2; ++q) {
-                        const int idx = tid + q * kThreads;
-                        a_st[idx / kWA][idx % kWA] = a_value(
-                            xs, h_out, m0 + idx / kWA, a0 + idx % kWA, dir_row0, live_rows, n2,
-                            feat, hidden);
-                        const int g = g0 + (idx % (kWG / 4)) * 4;
-                        const float4 v = g < gates
-                            ? *reinterpret_cast<const float4*>(
-                                  dg_blk + static_cast<size_t>(m0 + idx / (kWG / 4)) * gates + g)
-                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-                        *reinterpret_cast<float4*>(&d_st[idx / (kWG / 4)][(idx % (kWG / 4)) * 4]) = v;
-                    }
-                    __syncthreads();
-                    fma_stage<kWA / 2, kWG / 2>(a_st, d_st, ta, tb, acc);
-                    __syncthreads();
-                }
-                // this thread's outputs: no other thread of any block writes them
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const int a = a0 + tile_col(ta, i, kWA / 2);
-                    if (a > width) continue;
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) {
-                        const int g = g0 + tile_col(tb, j, kWG / 2);
-                        if (g < gates) slot[static_cast<size_t>(a) * gates + g] += acc[i][j];
-                    }
-                }
-            }
-        }
-    }
+    const StackedDxProblem dp{xh, dgp, wp, static_cast<float*>(dx), gates};
+    return launch_product(dp, feat, rows, 2, stream);
 }
+
 
 template <int kFwdRows>
 cudaError_t launch_fwd(const void* xs, const void* w, const void* u, const void* b,
@@ -397,27 +423,22 @@ extern "C" int clair_bilstm_train_fwd(const void* xs, const void* w, const void*
     return static_cast<int>(err);
 }
 
-// The backward: dx (T, 2B, F) unless null, and per block the partial sums
-// (F + H + 1) x 4H of dW, dU and db in `partial` (zeroed by the caller).
-// tile_rows must equal the kernel's row tile (the caller sizes the dgates
-// scratch with it); otherwise cudaErrorInvalidValue.
-extern "C" int clair_bilstm_train_bwd(const void* xs, const void* h_out, const void* c_out,
-                                      const void* dh_out, const void* wu, const void* wut,
-                                      const void* b, void* dgates, void* partial, void* dx,
-                                      int batch, int t_len, int feat, int hidden,
-                                      int blocks_per_dir, int tile_rows, void* stream) {
-    if (tile_rows != kBwdRows || blocks_per_dir < 1) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const size_t smem = sizeof(float) * kBwdRows * (feat + 7 * hidden);
-    const cudaError_t err = allow_dynamic_smem(train_bwd, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    train_bwd<<<dim3(blocks_per_dir, 2), dim3(kThreads), smem,
-                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(xs), static_cast<const float*>(h_out),
-        static_cast<const float*>(c_out), static_cast<const float*>(dh_out),
-        static_cast<const float*>(wu), static_cast<const float*>(wut),
-        static_cast<const float*>(b), static_cast<float*>(dgates),
-        static_cast<float*>(partial), static_cast<float*>(dx), batch, t_len, feat, hidden);
-    return static_cast<int>(cudaGetLastError());
+// The backward: dx (T, 2B, F) unless null, and the partial sums of dW, dU
+// and db, partial (splits, 2, F + H + 1, 4H) float32, chunk `split` of each
+// direction covering its rows m = t*B + r in [split * rows_per_split, ...)
+// (every element written). ut is U transposed, (2, 4H, H); gates is a
+// (T, 2B, 4H) float32 buffer; scratch holds scratch_bytes >=
+// 2 * 3 * (T*2B*F + T*2B*H + 2F*4H + 2H*4H + T*2B*4H) bytes (the bf16 pieces
+// of xs, h_out, W, U and the dgates). F and H must be multiples of 8
+// (otherwise cudaErrorInvalidValue), and ut, gates, partial, dx and scratch
+// 16-byte aligned (the other operands are read a value at a time).
+extern "C" int clair_bilstm_train_bwd(const void* xs, const void* w, const void* u,
+                                      const void* ut, const void* b, const void* h_out,
+                                      const void* c_out, const void* dh_out, void* gates,
+                                      void* partial, void* dx, void* scratch,
+                                      long long scratch_bytes, int batch, int t_len, int feat,
+                                      int hidden, int splits, int rows_per_split, void* stream) {
+    return static_cast<int>(launch_bwd(xs, w, u, ut, b, h_out, c_out, dh_out, gates, partial, dx,
+                                       scratch, scratch_bytes, batch, t_len, feat, hidden, splits,
+                                       rows_per_split, static_cast<cudaStream_t>(stream)));
 }

@@ -11,10 +11,17 @@ out. ``bilstm_train(params, x)`` is the drop-in for ``models.bilstm.bilstm``:
 The layout is the JAX kernels': both directions stacked on the batch axis,
 xs (T, 2B, F) with the time-reversed sequence in rows B.., so the backward
 sweep runs t = T-1 .. 0 for both, with zero state before t = 0. The
-backward un-reverses dx and adds the two directions' halves, and sums the
-kernel's per-block weight-gradient partials per direction in a fixed order,
-as ``_bilstm_bwd`` sums its per-tile partials. The batch is not padded: the
-kernels mask the ragged edge, so rows past the batch have no cotangent.
+backward is four kernels behind one entry point, built from the streaming
+backward's parts (``csrc/mma_product.cuh``): every step's gates in one
+tensor-core product, a float32 reverse sweep that carries dh and dc and
+writes dgates as bf16 pieces, the weight sums over fixed row chunks, and dx
+per direction; every product takes float32 operands as three bf16 pieces
+(six passes, float32 sums). This wrapper allocates the gates, the pieces'
+scratch and the chunks' partials per call, sums the partials per direction
+in a fixed order (as ``_bilstm_bwd`` sums its per-tile partials), and the
+autograd backward un-reverses dx and adds the two directions' halves. The
+batch is not padded: the kernels mask the ragged edge, so rows past the
+batch have no cotangent. On the card F and H must be multiples of 8.
 
 When a gradient is wanted, the layer runs as ``_BiLSTMTrain``, a
 ``torch.autograd.Function`` that pairs the forward (keeping the cell
@@ -22,25 +29,30 @@ states) with the backward; dx is computed only when the input requires a
 gradient (not for lstm1). A CUDA tensor goes to the kernels, or the
 wrappers raise. A CPU tensor goes to the plain versions,
 ``bilstm_train_reference`` and ``bilstm_train_backward_reference``, which
-are also the kernels' yardsticks on the card. ``bilstm_train.launches`` and
-``bilstm_train_backward.launches`` count each kernel's launches.
+are also the kernels' yardsticks on the card; the backward's
+``emulate_kernel`` runs the kernel's split-bf16 products on the CPU.
+``bilstm_train.launches`` and ``bilstm_train_backward.launches`` count each
+call of a kernel's entry point (the backward's runs four kernels).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from clair_tpu_torch.models.bilstm import _gate_update, _stack_directions, _unstack_outputs
+from clair_tpu_torch.ops.bilstm_stream import (
+    _MAX_GRID_Y, _ROW_TILE, KERNEL_PIECES, _split_rows, split_bf16_product,
+)
 from clair_tpu_torch.ops.build import launch, on_cuda
 
 _KERNEL = "bilstm_train"
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-_MAX_HIDDEN = 1024  # forward: one thread per hidden unit
-_TILE_ROWS = 16     # backward: rows per tile (kBwdRows in the source)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+_MAX_HIDDEN = 1024  # forward and the backward's sweep: one thread per hidden unit
 
 
 def bilstm_train_reference(xs, w, u, b) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -62,14 +74,21 @@ def bilstm_train_reference(xs, w, u, b) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.stack(cs).reshape(t_len, n2, hidden))
 
 
-def bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
+def bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh_out, *, need_dx=True,
+                                    emulate_kernel=False):
     """Plain PyTorch version of the backward kernel: the reverse sweep
     t = T-1 .. 0 of both directions on the stacked layout, a loop over t
     with ``bmm`` for the carried product. Takes the forward's inputs and
     outputs and dh_out (T, 2B, H); returns (dx (T, 2B, F) or None, dw
-    (2, F, 4H), du (2, H, 4H), db (2, 4H)), all float32."""
+    (2, F, 4H), du (2, H, 4H), db (2, 4H)), all float32. ``emulate_kernel``:
+    the gate, weight-sum and dx products run as the kernel's split-bf16
+    product (``split_bf16_product``, three pieces an operand); the carry
+    stays float32, as in the kernel."""
     t_len, n2, feat = xs.shape
     batch, hidden = n2 // 2, u.shape[1]
+    product = torch.einsum
+    if emulate_kernel:
+        product = functools.partial(split_bf16_product, pieces=KERNEL_PIECES[torch.float32])
 
     def per_dir(t: torch.Tensor) -> torch.Tensor:
         return t.reshape(t_len, 2, batch, -1)
@@ -78,7 +97,7 @@ def bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh_out, *, need_d
     h_prev = torch.cat([torch.zeros_like(h[:1]), h[:-1]])
     c_prev = torch.cat([torch.zeros_like(c[:1]), c[:-1]])
     # every step's gates at once: they do not depend on the carry
-    gates = (torch.einsum("tdbf,dfg->tdbg", x, w) + torch.einsum("tdbk,dkg->tdbg", h_prev, u)
+    gates = (product("tdbf,dfg->tdbg", x, w) + product("tdbk,dkg->tdbg", h_prev, u)
              + b[None, :, None])
     i, f, g, o = gates.chunk(4, dim=-1)
     i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
@@ -98,10 +117,10 @@ def bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh_out, *, need_d
         dh_carry = torch.bmm(dgates[t], u_t)
         dc_carry = dc * f[t]
 
-    dw = torch.einsum("tdbf,tdbg->dfg", x, dgates)
-    du = torch.einsum("tdbk,tdbg->dkg", h_prev, dgates)
+    dw = product("tdbf,tdbg->dfg", x, dgates)
+    du = product("tdbk,tdbg->dkg", h_prev, dgates)
     db = dgates.sum(dim=(0, 2))
-    dx = (torch.einsum("tdbg,dfg->tdbf", dgates, w).reshape(t_len, n2, feat)
+    dx = (product("tdbg,dfg->tdbf", dgates, w).reshape(t_len, n2, feat)
           if need_dx else None)
     return dx, dw, du, db
 
@@ -152,11 +171,18 @@ def bilstm_train_forward(xs, w, u, b) -> Tuple[torch.Tensor, torch.Tensor]:
     return h_out, c_out
 
 
+def _scratch_bytes(rows2: int, feat: int, hidden: int) -> int:
+    """The backward's scratch: three bf16 pieces of xs (T*2B, F), h_out
+    (T*2B, H), W (2F, 4H), U (2H, 4H) and the dgates (T*2B, 4H)."""
+    gates = 4 * hidden
+    return 2 * 3 * (rows2 * (feat + hidden + gates) + 2 * (feat + hidden) * gates)
+
+
 def bilstm_train_backward(xs, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
     """The backward of one layer on the stacked layout: (dx (T, 2B, F) or
     None, dw, du, db), float32. Same inputs and outputs as
-    ``bilstm_train_backward_reference``; a CUDA tensor runs the kernel,
-    whose per-block partials are summed here in a fixed order."""
+    ``bilstm_train_backward_reference``; a CUDA tensor runs the kernels,
+    whose per-chunk partials are summed here in a fixed order."""
     if not on_cuda(xs, "bilstm_train_backward"):
         return bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh_out,
                                                need_dx=need_dx)
@@ -169,26 +195,45 @@ def bilstm_train_backward(xs, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
             raise ValueError(f"{name} must be a contiguous float32 {(t_len, n2, hidden)} "
                              f"tensor on {xs.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
+    if feat % 8 or hidden % 8:
+        # the products stage 16-byte chunks of [xs | h] rows
+        raise ValueError(f"the backward kernel takes F and H in multiples of 8, not "
+                         f"F = {feat}, H = {hidden}")
     batch, width, gates = n2 // 2, feat + hidden, 4 * hidden
-    # a persistent grid: one block per SM and direction, each summing its
-    # tiles into a partial slot of its own
-    tiles = -(-batch // _TILE_ROWS)
-    blocks = min(tiles, torch.cuda.get_device_properties(xs.device).multi_processor_count)
-    # [W ; U] and its transpose: layout copies, so both products read coalesced
-    wu = torch.cat([w, u], dim=1).contiguous()
-    wut = wu.transpose(1, 2).contiguous()
-    scratch = torch.empty((2, blocks, t_len * _TILE_ROWS, gates), dtype=torch.float32,
+    rows = batch * t_len  # a direction's rows in the products
+    if -(-rows // _ROW_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"T*B = {rows} rows exceed the backward products' grid")
+    splits, rows_per_split = _split_rows(rows)
+    # U transposed, so the sweep's dh carry reads it coalesced (a layout
+    # copy of 2*H*4H values, not a product)
+    u_t = u.transpose(1, 2).contiguous()
+    gate_buf = torch.empty((t_len, n2, gates), dtype=torch.float32, device=xs.device)
+    scratch = torch.empty(_scratch_bytes(t_len * n2, feat, hidden), dtype=torch.uint8,
                           device=xs.device)
-    partial = torch.zeros((2, blocks, width + 1, gates), dtype=torch.float32, device=xs.device)
+    partial = torch.empty((splits, 2, width + 1, gates), dtype=torch.float32, device=xs.device)
     dx = torch.empty_like(xs) if need_dx else None
     launch(_KERNEL, "clair_bilstm_train_bwd", _BWD_ARGTYPES, xs.device,
-           xs.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), dh_out.data_ptr(),
-           wu.data_ptr(), wut.data_ptr(), b.data_ptr(), scratch.data_ptr(),
-           partial.data_ptr(), dx.data_ptr() if need_dx else None,
-           batch, t_len, feat, hidden, blocks, _TILE_ROWS)
+           xs.data_ptr(), w.data_ptr(), u.data_ptr(), u_t.data_ptr(), b.data_ptr(),
+           h_out.data_ptr(), c_out.data_ptr(), dh_out.data_ptr(), gate_buf.data_ptr(),
+           partial.data_ptr(), dx.data_ptr() if need_dx else None, scratch.data_ptr(),
+           scratch.numel(), batch, t_len, feat, hidden, splits, rows_per_split)
     bilstm_train_backward.launches += 1
-    sums = partial.sum(dim=1)
+    # the per-direction sum of the chunks' partials, in a fixed order
+    sums = partial.sum(dim=0)
     return dx, sums[:, :feat], sums[:, feat:width], sums[:, width]
+
+
+def stacked_cotangent(dout: torch.Tensor, hidden: int) -> torch.Tensor:
+    """The layer's output cotangent (B, T, 2H) on the stacked layout
+    (T, 2B, H), float32: the backward direction's half re-reversed."""
+    return torch.cat([dout[..., :hidden].transpose(0, 1),
+                      dout[..., hidden:].flip(1).transpose(0, 1)], dim=1).float().contiguous()
+
+
+def input_grad(dx_s: torch.Tensor, batch: int) -> torch.Tensor:
+    """dx (T, 2B, F) on the stacked layout -> (B, T, F): forward rows map
+    straight back, backward rows un-reverse, and the halves add."""
+    return dx_s[:, :batch].transpose(0, 1) + dx_s[:, batch:].transpose(0, 1).flip(1)
 
 
 class _BiLSTMTrain(torch.autograd.Function):
@@ -205,17 +250,10 @@ class _BiLSTMTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         xs, w, u, b, h_out, c_out = ctx.saved_tensors
-        batch, hidden = xs.shape[1] // 2, u.shape[1]
-        # (B, T, 2H) -> stacked (T, 2B, H): the backward half re-reversed
-        dh_out = torch.cat([dout[..., :hidden].transpose(0, 1),
-                            dout[..., hidden:].flip(1).transpose(0, 1)], dim=1)
         dx_s, dw, du, db = bilstm_train_backward(
-            xs, w, u, b, h_out, c_out, dh_out.float().contiguous(),
+            xs, w, u, b, h_out, c_out, stacked_cotangent(dout, u.shape[1]),
             need_dx=ctx.needs_input_grad[0])
-        dx = None
-        if dx_s is not None:
-            # forward rows map straight back; backward rows un-reverse
-            dx = dx_s[:, :batch].transpose(0, 1) + dx_s[:, batch:].transpose(0, 1).flip(1)
+        dx = None if dx_s is None else input_grad(dx_s, xs.shape[1] // 2)
         return dx, dw, du, db
 
 

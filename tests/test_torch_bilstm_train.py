@@ -3,9 +3,10 @@ versions on the CPU) against the JAX package's Pallas pair
 (clair_tpu/ops/pallas_bilstm_train.py) in interpret mode: values, and
 torch.autograd gradients of x and every parameter against jax.grad. Also
 the plain reverse sweep against torch.autograd of the plain forward, the
-wiring (float32 only, dx only when asked, no launch on the CPU), and, where
-there is a card, the kernels against their plain versions (the `cuda`
-test, also run by chip_smoke.py)."""
+wiring (float32 only, dx only when asked, no launch on the CPU), the
+backward's numerics as the kernel computes them (three-piece split-bf16
+products) against jax.grad, and, where there is a card, the kernels against
+their plain versions (the `cuda` test, also run by chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,7 @@ import clair_tpu.ops.pallas_bilstm_train as PT
 from clair_tpu_torch.models.bilstm import _stack_directions
 from clair_tpu_torch.ops.bilstm_train import (
     _stack_params, bilstm_train, bilstm_train_backward, bilstm_train_backward_reference,
-    bilstm_train_forward, bilstm_train_reference,
+    bilstm_train_forward, bilstm_train_reference, input_grad, stacked_cotangent,
 )
 
 # the geometries of tests/test_pallas_bilstm_train.py
@@ -83,6 +84,31 @@ def test_values_and_grads_match_the_pallas_pair(geometry, interpret_mode):
     for d in ("fw", "bw"):
         for k in ("w", "u", "b"):
             np.testing.assert_allclose(leaves[d][k].grad.numpy(), np.asarray(want_params[d][k]),
+                                       rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=f"{d}.{k}")
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+def test_kernel_numerics_match_jax_grad_of_pallas_pair(geometry, interpret_mode):
+    """The backward as the kernel computes it on the stacked layout (gates,
+    weight sums and dx as split-bf16 products, three pieces an operand, six
+    passes, float32 sums; the carry in float32) against jax.grad of the
+    Pallas pair, within GRAD_TOL: the numeric design meets the file's bound
+    before any card run."""
+    params, x, weight = _numpy_inputs(geometry, seed=5)
+    want_params, want_x = jax.grad(
+        lambda p, xx: jnp.sum(PT.bilstm_train_pallas(p, xx) * weight), argnums=(0, 1))(
+        params, jnp.asarray(x))
+    w, u, b = _stack_params(_leaves(params, False))
+    xs = _stack_directions(torch.from_numpy(x)).contiguous()
+    h_out, c_out = bilstm_train_reference(xs, w, u, b)
+    dx, dw, du, db = bilstm_train_backward_reference(
+        xs, w, u, b, h_out, c_out, stacked_cotangent(torch.from_numpy(weight), geometry[3]),
+        emulate_kernel=True)
+    np.testing.assert_allclose(input_grad(dx, geometry[0]).numpy(), np.asarray(want_x),
+                               rtol=GRAD_TOL, atol=GRAD_TOL)
+    for i, d in enumerate(("fw", "bw")):
+        for k, got in (("w", dw[i]), ("u", du[i]), ("b", db[i])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want_params[d][k]),
                                        rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=f"{d}.{k}")
 
 
