@@ -12,10 +12,12 @@ Phases, each printing its results and seconds:
    every launchable (cluster size, rows per tile) at a small batch
    3b. the resident train pair (use_pallas_train_bilstm) against its plain
        versions and torch.autograd, and two backward runs bit for bit, at
-       every TRAIN_GEOMETRIES geometry; a CUDA width the backward does not
-       take raises
+       every TRAIN_GEOMETRIES geometry; its forward at every launchable
+       (cluster size, rows per tile) of the sweep at a small batch; a CUDA
+       width the kernels do not take raises
    3c. use_pallas_bilstm's recurrence kernel against its plain version
-   3d. the two-layer bilstm2 kernel against the two plain layers
+   3d. the two-layer bilstm2 against the two plain layers, at every
+       BILSTM2_BATCHES batch and every launchable sweep geometry
 4. the streaming backward kernel against its plain PyTorch version, and
    against torch.autograd of the plain forward, on the card; two runs at
    the training shape of lstm2 bit for bit
@@ -38,8 +40,8 @@ Phases, each printing its results and seconds:
    8b. ``train_model`` under ``use_pallas_train_bilstm``, float32, on the
        same bin: the same checks, only the train pair launching
 9. times (CUDA events after warm-up) beside the card's name and power limit
-   9a. the two backwards (rows 2 and 6) split by kernel (torch.profiler) at
-       B = 10,000
+   9a. the two backwards (rows 2 and 6) and the resident forward (row 5)
+       split by kernel (torch.profiler) at B = 10,000
    9b. the other kernels' times, and the train step under each training pair
    9c. bilstm2 as a library call on the vendored checkpoint's two layers
    9d. each kernel's bound (the least time the card could take for its
@@ -104,7 +106,7 @@ KERNELS = {
     "bilstm2": {
         "name": "bilstm2",
         "route": "cuda",
-        "source": "clair_tpu_torch/csrc/bilstm2.cu",
+        "source": "clair_tpu_torch/csrc/lstm_sweep.cuh",
         "replaces": "clair_tpu/ops/pallas_bilstm2.py:43",
     },
 }
@@ -136,9 +138,9 @@ BITWISE_GEOMETRY = (10000, 33, 256, 128)
 GEOMETRY_BATCH = 100
 BWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 256, 128),
                   (13, 33, 256, 128), (8, 7, 16, 8))
-# the train pair at the training batch (10,000, the forward's 16-row tile)
-# and at 512 for both layers (its 4-row tile), a ragged batch (13, no
-# multiple of the 16-row backward tile) and a tiny odd geometry;
+# the train pair at the training batch (10,000) and at 512 for both layers,
+# a ragged batch (13, no multiple of the sweeps' 8- and 16-row tiles) and a
+# tiny odd geometry;
 # use_pallas_bilstm's kernel at the calling batch and a ragged
 # one; bilstm2 at the calling batch, a ragged one and the training batch
 TRAIN_GEOMETRIES = ((10000, 33, 32, 128), (10000, 33, 256, 128), (512, 33, 32, 128),
@@ -386,17 +388,53 @@ def check_train_pair(dev):
     launched = launched_since(before)
     assert launched["bilstm_train"] == len(TRAIN_GEOMETRIES), launched
     assert launched["bilstm_train_backward"] == 2 * len(TRAIN_GEOMETRIES), launched
+    errs["bilstm_train"] = max(errs["bilstm_train"], check_sweep_geometries(dev))
     # no fallback to the plain version for a CUDA tensor: a width whose
-    # 16-byte chunks the backward's products cannot stage raises
+    # 16-byte chunks the products cannot stage raises, in both kernels
     xs, w, u, b, dh = stacked_inputs((4, 5, 12, 8), dev, 7)
-    h_out, c_out = bilstm_train_forward(xs, w, u, b)
-    try:
-        bilstm_train_backward(xs, w, u, b, h_out, c_out, dh)
-    except ValueError as refused:
-        print(f"  train backward at F = 12 on the card raises: {refused}")
-    else:
-        raise AssertionError("the train backward took F = 12 on the card")
+    h_out, c_out = bilstm_train_reference(xs, w, u, b)
+    for name, run in (("forward", lambda: bilstm_train_forward(xs, w, u, b)),
+                      ("backward", lambda: bilstm_train_backward(xs, w, u, b, h_out, c_out, dh))):
+        try:
+            run()
+        except ValueError as refused:
+            print(f"  train {name} at F = 12 on the card raises: {refused}")
+        else:
+            raise AssertionError(f"the train {name} took F = 12 on the card")
     return errs
+
+
+def check_sweep_geometries(dev):
+    """Phase 3b, second part: row 5's forward at every (cluster size, rows
+    per tile) of the sweep that launches, at a small ragged batch of each
+    layer's width, against the plain version within F32_TOL (h and c). No
+    count moves (the geometry runs serve no path)."""
+    from clair_tpu_torch.ops.bilstm_train import (
+        _forward_launch, bilstm_train_reference, sweep_geometries,
+    )
+
+    worst_all, before = 0.0, kernel_counts()
+    for layer, feat in LAYERS:
+        xs, w, u, b, _ = stacked_inputs((GEOMETRY_BATCH, T_LEN, feat, HIDDEN), dev, feat + 11)
+        want_h, want_c = bilstm_train_reference(xs, w, u, b)
+        launched, worst = [], 0.0
+        candidates = sweep_geometries(HIDDEN)
+        for cluster, rows in candidates:
+            got = _forward_launch(xs, w, u, b, cluster=cluster, rows=rows)
+            if got is None:
+                continue
+            torch.cuda.synchronize()
+            err = max((got[0] - want_h).abs().max().item(), (got[1] - want_c).abs().max().item())
+            assert err <= F32_TOL, (layer, cluster, rows, err)
+            launched.append((cluster, rows))
+            worst = max(worst, err)
+        assert launched, layer
+        worst_all = max(worst_all, worst)
+        print(f"  row 5 forward {layer} B={GEOMETRY_BATCH} at every launchable (cluster, rows) "
+              f"of the sweep, {len(launched)} of {len(candidates)} that fit: max|d| "
+              f"{worst:.3e}; {launched}")
+    assert launched_since(before) == dict.fromkeys(before, 0)
+    return worst_all
 
 
 def precomputed_inputs(geometry, dev, p_dtype, x_dtype, seed):
@@ -442,22 +480,46 @@ def check_precomputed(dev):
 
 
 def check_bilstm2(dev):
-    """Phase 3d: bilstm2 vs the two plain layers, float32, within F32_TOL."""
-    from clair_tpu_torch.ops.bilstm2 import bilstm2, bilstm2_reference
+    """Phase 3d: bilstm2 vs the two plain layers, float32, within F32_TOL,
+    at every BILSTM2_BATCHES batch (one count of bilstm2 each, none of the
+    train forward whose kernels it runs), and at every launchable sweep
+    geometry at a small ragged batch (no count)."""
+    from clair_tpu_torch.ops.bilstm2 import _layers, bilstm2, bilstm2_reference
+    from clair_tpu_torch.ops.bilstm_train import sweep_geometries
 
     max_err = 0.0
-    before = bilstm2.launches
-    for batch in BILSTM2_BATCHES:
-        rs = np.random.RandomState(batch)
+    before = kernel_counts()
+    with torch.no_grad():
+        for batch in BILSTM2_BATCHES:
+            rs = np.random.RandomState(batch)
+            p1, p2 = lstm_params(rs, 32, 128, dev), lstm_params(rs, 256, 128, dev)
+            x = torch.tensor(rs.randn(batch, 33, 32), dtype=torch.float32, device=dev)
+            got, want = bilstm2(p1, p2, x), bilstm2_reference(p1, p2, x)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            assert got.shape == (batch, 33, 256) and err <= F32_TOL, (batch, err)
+            max_err = max(max_err, err)
+            print(f"  bilstm2 vs plain B={batch}: max|dh| {err:.3e}")
+        launched = launched_since(before)
+        assert launched == {**dict.fromkeys(before, 0), "bilstm2": len(BILSTM2_BATCHES)}, launched
+        rs = np.random.RandomState(GEOMETRY_BATCH)
         p1, p2 = lstm_params(rs, 32, 128, dev), lstm_params(rs, 256, 128, dev)
-        x = torch.tensor(rs.randn(batch, 33, 32), dtype=torch.float32, device=dev)
-        got, want = bilstm2(p1, p2, x), bilstm2_reference(p1, p2, x)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        assert got.shape == (batch, 33, 256) and err <= F32_TOL, (batch, err)
-        max_err = max(max_err, err)
-        print(f"  bilstm2 vs plain B={batch}: max|dh| {err:.3e}")
-    assert bilstm2.launches == before + len(BILSTM2_BATCHES)
+        x = torch.tensor(rs.randn(GEOMETRY_BATCH, 33, 32), dtype=torch.float32, device=dev)
+        want = bilstm2_reference(p1, p2, x)
+        done, worst = [], 0.0
+        for cluster, rows in sweep_geometries(HIDDEN):
+            got = _layers(p1, p2, x, cluster, rows)
+            if got is None:
+                continue
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            assert err <= F32_TOL, (cluster, rows, err)
+            done.append((cluster, rows))
+            worst = max(worst, err)
+    assert done and launched_since(before)["bilstm2"] == len(BILSTM2_BATCHES)
+    max_err = max(max_err, worst)
+    print(f"  bilstm2 B={GEOMETRY_BATCH} at every launchable (cluster, rows) of the sweep, "
+          f"{len(done)}: max|dh| {worst:.3e}")
     return max_err
 
 
@@ -816,6 +878,20 @@ def backward_split(dev, batch=TRAIN_BATCH, iters=5, dtypes=(torch.bfloat16, torc
     return split
 
 
+def forward_split(dev, batch=TRAIN_BATCH, iters=5):
+    """Row 5's device time by part (``device_parts``: the float32 pieces of
+    xs and W, the product xw = xs.W + b under "gate product", the sweep),
+    per layer at the training batch. {layer: {part: ms per call}}."""
+    from clair_tpu_torch.ops.bilstm_train import bilstm_train_forward
+
+    split = {}
+    for layer, feat in LAYERS:
+        xs, w, u, bias, _ = stacked_inputs((batch, T_LEN, feat, HIDDEN), dev, feat + 5)
+        split[layer] = device_parts(lambda: bilstm_train_forward(xs, w, u, bias), iters,
+                                    f"row 5 split {layer} B={batch} float32")
+    return split
+
+
 def new_kernel_times(params, dev, ms, plain_ms):
     """Phase 9b: the new kernels and their plain versions at the paths'
     shapes (CUDA events after a warm-up), and the train step at batch
@@ -849,6 +925,9 @@ def new_kernel_times(params, dev, ms, plain_ms):
             print(f"  {name} {layer} B=10000 f32: kernel {k:.4f} ms, plain {pl:.4f} ms")
             ms[name] += k
             plain_ms[name] += pl
+        xs, w, u, b, _ = stacked_inputs((CALL_BATCH, 33, feat, 128), dev, feat + 7)
+        print(f"  bilstm_train {layer} B={CALL_BATCH} f32: kernel "
+              f"{cuda_ms(lambda: bilstm_train_forward(xs, w, u, b)):.4f} ms")
         geometry = (512, 33, feat, 128)
         for p_dtype, x_dtype in PRECOMPUTED_DTYPES:
             if (layer == "lstm1") != (x_dtype == p_dtype):
@@ -974,14 +1053,41 @@ def backward_ms(lstm, x, dh, iters):
     return total / iters
 
 
+def precomputed_library(dev):
+    """Row 3's library time: per layer and direction, torch.nn.LSTM with
+    input size 4H, weight_ih = I, no bias and weight_hh = U^T, fed that
+    direction's xw (T, B, 4H) as the model gives it to the kernel at the
+    calling batch in bf16 (lstm1: xw and U bf16; lstm2: xw float32, U the
+    bf16 weights widened). It computes the same recurrence, plus a 4H x 4H
+    product of xw with the identity. Summed over the four calls."""
+    total = 0.0
+    for p_dtype, x_dtype in PRECOMPUTED_DTYPES[1:]:
+        feat = 32 if x_dtype == torch.bfloat16 else 256
+        xw, u = precomputed_inputs((CALL_BATCH, T_LEN, feat, HIDDEN), dev, p_dtype, x_dtype, 16)
+        for d in range(2):
+            lstm = torch.nn.LSTM(4 * HIDDEN, HIDDEN, bias=False).to(dev)
+            with torch.no_grad():
+                lstm.weight_ih_l0.copy_(torch.eye(4 * HIDDEN, device=dev))
+                lstm.weight_hh_l0.copy_(u[d].float().T)
+            lstm = lstm.to(xw.dtype)
+            lstm.flatten_parameters()
+            seq = xw[d].contiguous()
+            with torch.no_grad():
+                ms = cuda_ms(lambda: lstm(seq))
+            print(f"    torch.nn.LSTM(4H, H, weight_ih = I) on xw {str(xw.dtype)[6:]} direction "
+                  f"{d} B={CALL_BATCH}: {ms:.4f} ms")
+            total += ms
+    return total
+
+
 def yardsticks(dev):
     """Phase 9d: each kernel's bound_ms at the shapes of its JSON ``ms``
     (rows 1 and 3 the calling path, B = 512, both layers, bf16; row 4 both
     layers fused, B = 512, float32; rows 2, 5 and 6 the training batch,
     B = 10,000, both layers, bf16 for the streaming pair and float32 for
     the train pair, lstm1 without dx), and library_ms, the time of
-    torch.nn.LSTM computing the same function on the same shapes (None
-    where no single call does, or where it refuses the dtype)."""
+    torch.nn.LSTM computing the same function on the same shapes (row 3:
+    with an identity weight_ih, fed xw; None where it refuses the dtype)."""
     bf16, f32 = torch.bfloat16, torch.float32
     bounds = {
         "bilstm_stream": bound([fwd_work(CALL_BATCH, f, bf16) for _, f in LAYERS], bf16),
@@ -1037,6 +1143,10 @@ def yardsticks(dev):
             library[name] = each_layer(batch, dtype, run)
         except RuntimeError as refused:  # the yardstick, not the port: record and go on
             print(f"    torch.nn.LSTM refuses {name}'s shapes in {dtype}: {refused}")
+    try:
+        library["bilstm_precomputed"] = precomputed_library(dev)
+    except RuntimeError as refused:  # the yardstick, not the port: record and go on
+        print(f"    torch.nn.LSTM refuses bilstm_precomputed's shapes: {refused}")
     two = library_lstm([params[32], params[256]], f32, dev)
     x = torch.tensor(rs.randn(CALL_BATCH, T_LEN, 32), dtype=f32, device=dev)
     library["bilstm2"] = inference(two, x, 32)
@@ -1246,11 +1356,12 @@ def main():
     phase("9 times", t)
 
     t = time.perf_counter()
-    print(f"rows 2 and 6 by kernel on {card} (torch.profiler, mean of 5 calls after a "
+    print(f"rows 2, 6 and 5 by kernel on {card} (torch.profiler, mean of 5 calls after a "
           f"warm-up):")
     backward_split(dev)
     backward_split(dev, pair=TRAIN_PAIR)
-    phase("9a the backwards' split", t)
+    forward_split(dev)
+    phase("9a the backwards' and row 5's split", t)
 
     t = time.perf_counter()
     new_kernel_times(params, dev, ms, plain_ms)

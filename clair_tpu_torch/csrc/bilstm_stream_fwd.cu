@@ -116,13 +116,6 @@ struct Layout {
     }
 };
 
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void zero(Acc& acc) {
 #pragma unroll
     for (int j = 0; j < kItemTiles; ++j)

@@ -12,13 +12,24 @@
 //
 // Forward: per step gates = x_t.W + h.U + b in float32, i, f, o = sigmoid,
 // g = tanh, c' = f*c + i*g, h' = o*tanh(c'); h and c of every step go out (c
-// is the backward's residual). One block per (tile of kFwdRows rows,
-// direction), one thread per hidden unit; h in shared memory and c in
-// registers across the T steps. Like the streaming forward it is bound by
-// the latency of the T dependent steps and by re-reading W and U from L2
-// every step, each value used by kFwdRows rows (16 at a training batch, 4
-// below kLargeBatch, where 16-row tiles would leave SMs idle); only xs,
-// h_out and c_out cross device memory, once each.
+// is the backward's residual). Three parts behind one launch of the entry
+// point: (pieces) xs and W split into three bf16 pieces in scratch; (a)
+// xw = xs.W + b for every step at once, the backward's gate product (a)
+// below restricted to the x columns, into a (T, 2B, 4H) float32 buffer;
+// (b) the float32 forward sweep of lstm_sweep.cuh on the stacked layout
+// (StackedForward): U's three pieces held across a thread-block cluster,
+// h.U on mma.sync, h exchanged through distributed shared memory. What
+// bounds each part, at B = 10,000: (a) six passes of 2 * 2B*T * F * 4H
+// tensor-core operations and the 1.35 GB of xw it writes; (b) the serial
+// chain of T steps a row tile, a step's h.U (six passes of 2 * rows * H *
+// 4H) and its exchange, and the 1.35 GB of xw it reads; (pieces) bytes.
+// Measured, both layers (lstm1 + lstm2, CUDA events) on an H100 80GB HBM3
+// at 700 W: at B = 10,000, 11.38 ms against the design before this one
+// (one thread per hidden unit, float32 FMA, re-reading W and U from L2
+// every step for 16 rows, 4 below B = 4096) at 15.94, in turns in one run
+// (tools/torch_step_compare.py --kernels); split (chip_smoke.py phase 9a,
+// torch.profiler) lstm1 pieces 0.07, xw 1.18, sweep 2.81; lstm2 pieces
+// 0.57, xw 3.70, sweep 2.84. At B = 512: 0.70 against 2.78 ms.
 //
 // Backward: the TPU kernel's reverse sweep, built from the streaming
 // backward's parts (mma_product.cuh: the split-bf16 tensor-core product and
@@ -74,113 +85,9 @@
 // cores), wgmma and TMA in the products, one read of dgates feeding both dx
 // and the weight sums.
 
-#include "mma_product.cuh"
+#include "lstm_sweep.cuh"
 
 namespace {
-
-
-// forward: rows per block, by batch. On an H100 (700 W), 16 rows against 4
-// ran lstm1/lstm2 in 5.0/10.9 ms against 6.2/14.2 at B = 10,000, and in
-// 1.4/3.2 ms against 0.87/1.96 at B = 512 (fewer blocks than the card
-// holds); the crossover between the two batches is not measured
-constexpr int kFwdRowsSmall = 4;
-constexpr int kFwdRowsLarge = 16;
-constexpr int kLargeBatch = 4096;
-
-// xs: (T, 2B, F); w: (2, F, 4H); u: (2, H, 4H); b: (2, 4H).
-// h_out, c_out: (T, 2B, H). blockDim.x == H, gridDim = (ceil(B / kFwdRows), 2).
-template <int kFwdRows>
-__global__ void train_fwd(const float* __restrict__ xs, const float* __restrict__ w,
-                          const float* __restrict__ u, const float* __restrict__ b,
-                          float* __restrict__ h_out, float* __restrict__ c_out,
-                          int batch, int t_len, int feat) {
-    extern __shared__ float smem[];
-    const int hidden = blockDim.x;
-    const int gates = 4 * hidden;
-    const int j = threadIdx.x;
-    const int dir = blockIdx.y;
-    const int row0 = blockIdx.x * kFwdRows;  // within the direction's B rows
-    const size_t n2 = 2 * static_cast<size_t>(batch);
-    float* x_s = smem;                      // (kFwdRows, F): this step's inputs
-    float* h_s = smem + kFwdRows * feat;    // (kFwdRows, H): the carried h
-
-    const float* wd = w + static_cast<size_t>(dir) * feat * gates;
-    const float* ud = u + static_cast<size_t>(dir) * hidden * gates;
-    const float* bd = b + dir * gates;
-    const float b_i = bd[j], b_f = bd[hidden + j];
-    const float b_g = bd[2 * hidden + j], b_o = bd[3 * hidden + j];
-
-    float c[kFwdRows];
-#pragma unroll
-    for (int r = 0; r < kFwdRows; ++r) {
-        c[r] = 0.0f;
-        h_s[r * hidden + j] = 0.0f;
-    }
-
-    for (int t = 0; t < t_len; ++t) {
-        const size_t step_rows = t * n2 + static_cast<size_t>(dir) * batch;
-        for (int idx = j; idx < kFwdRows * feat; idx += hidden) {
-            const int r = idx / feat;
-            const int k = idx - r * feat;
-            const int row = row0 + r;
-            x_s[idx] = row < batch ? xs[(step_rows + row) * feat + k] : 0.0f;
-        }
-        __syncthreads();  // x_s filled; last step's h_s writes visible
-
-        float acc[kFwdRows][4];
-#pragma unroll
-        for (int r = 0; r < kFwdRows; ++r) {
-            acc[r][0] = b_i;
-            acc[r][1] = b_f;
-            acc[r][2] = b_g;
-            acc[r][3] = b_o;
-        }
-        for (int k = 0; k < feat; ++k) {
-            const float* wk = wd + static_cast<size_t>(k) * gates;
-            const float w0 = wk[j], w1 = wk[hidden + j], w2 = wk[2 * hidden + j];
-            const float w3 = wk[3 * hidden + j];
-#pragma unroll
-            for (int r = 0; r < kFwdRows; ++r) {
-                const float xv = x_s[r * feat + k];
-                acc[r][0] = fmaf(xv, w0, acc[r][0]);
-                acc[r][1] = fmaf(xv, w1, acc[r][1]);
-                acc[r][2] = fmaf(xv, w2, acc[r][2]);
-                acc[r][3] = fmaf(xv, w3, acc[r][3]);
-            }
-        }
-        for (int k = 0; k < hidden; ++k) {
-            const float* uk = ud + static_cast<size_t>(k) * gates;
-            const float u0 = uk[j], u1 = uk[hidden + j], u2 = uk[2 * hidden + j];
-            const float u3 = uk[3 * hidden + j];
-#pragma unroll
-            for (int r = 0; r < kFwdRows; ++r) {
-                const float hv = h_s[r * hidden + k];
-                acc[r][0] = fmaf(hv, u0, acc[r][0]);
-                acc[r][1] = fmaf(hv, u1, acc[r][1]);
-                acc[r][2] = fmaf(hv, u2, acc[r][2]);
-                acc[r][3] = fmaf(hv, u3, acc[r][3]);
-            }
-        }
-        __syncthreads();  // every thread has read x_s and h_s for this step
-
-#pragma unroll
-        for (int r = 0; r < kFwdRows; ++r) {
-            const float i_g = sigmoid(acc[r][0]);
-            const float f_g = sigmoid(acc[r][1]);
-            const float g_g = tanhf(acc[r][2]);
-            const float o_g = sigmoid(acc[r][3]);
-            c[r] = f_g * c[r] + i_g * g_g;
-            const float h = o_g * tanhf(c[r]);
-            h_s[r * hidden + j] = h;
-            const int row = row0 + r;
-            if (row < batch) {
-                const size_t o = (step_rows + row) * hidden + j;
-                h_out[o] = h;
-                c_out[o] = c[r];
-            }
-        }
-    }
-}
 
 // ---- the backward's problems on the stacked layout ------------------------
 
@@ -223,7 +130,9 @@ struct StackedXH {
     }
 };
 
-// (a) gates[t][n][g] = [xs_t | h_{t-1}][n] . [W ; U][:, g] + b[g]; grid.z = dir.
+// (a) gates[t][n][g] = [xs_t | h_{t-1}][n] . [W ; U][:, g] + b[g] over the
+// columns k < k_stop of [xs_t | h_{t-1}]: F + H for the backward's gates,
+// F for the forward's xw = xs.W + b; grid.z = dir.
 struct StackedGateProblem {
     static constexpr bool kAK = true, kBKMajor = false;  // A [m][k]; B [k][g]
     static constexpr int kPA = 3, kPB = 3;
@@ -232,11 +141,11 @@ struct StackedGateProblem {
     Pieces w, u;
     const float* b;
     float* out;  // (T, 2B, 4H)
-    int gates;
+    int gates, k_stop;
     __device__ int dir() const { return blockIdx.z; }
     __device__ const void* base() const { return xh.x.base; }
     __device__ int k_begin() const { return 0; }
-    __device__ int k_end() const { return xh.feat + xh.hidden; }
+    __device__ int k_end() const { return k_stop; }
     __device__ int m_extent() const { return xh.rows(); }
     __device__ int n_extent() const { return gates; }
     __device__ const bf16* a(int m, int k, int& ps) const { return xh.at(m, k, dir(), ps); }
@@ -371,7 +280,8 @@ cudaError_t launch_bwd(const void* xs, const void* w, const void* u, const void*
     const StackedXH xh{xp, hp, batch, t_len, feat, hidden, 1.0f / batch};
     float* gate_out = static_cast<float*>(gate_buf);
 
-    const StackedGateProblem gp{xh, wp, up, static_cast<const float*>(b), gate_out, gates};
+    const StackedGateProblem gp{xh, wp, up, static_cast<const float*>(b), gate_out, gates,
+                                feat + hidden};
     err = launch_product(gp, gates, rows, 2, stream);
     if (err != cudaSuccess) return err;
 
@@ -390,21 +300,59 @@ cudaError_t launch_bwd(const void* xs, const void* w, const void* u, const void*
 }
 
 
-template <int kFwdRows>
-cudaError_t launch_fwd(const void* xs, const void* w, const void* u, const void* b,
-                       void* h_out, void* c_out, int batch, int t_len, int feat, int hidden,
-                       cudaStream_t stream) {
-    const size_t smem = sizeof(float) * kFwdRows * (feat + hidden);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = allow_dynamic_smem(train_fwd<kFwdRows>, smem);
-        if (err != cudaSuccess) return err;
+// ---- the forward --------------------------------------------------------
+
+// The sweep's layout policy (lstm_sweep.cuh) on the stacked layout: both
+// directions run t = 0 .. T-1, an entry (dir, r, t) at row (t*2 + dir)*B + r
+// of xw (T, 2B, 4H) and of h_out and c_out (T, 2B, H).
+struct StackedForward {
+    const float* xw;
+    const float* u;  // (2, H, 4H)
+    float* h_out;
+    float* c_out;    // null: h alone
+    int batch, t_len, hidden;
+    __device__ size_t xw_row(int dir, int r, int step) const {
+        return (static_cast<size_t>(step) * 2 + dir) * batch + r;
     }
-    train_fwd<kFwdRows><<<dim3((batch + kFwdRows - 1) / kFwdRows, 2), dim3(hidden), smem,
-                          stream>>>(
-        static_cast<const float*>(xs), static_cast<const float*>(w),
-        static_cast<const float*>(u), static_cast<const float*>(b),
-        static_cast<float*>(h_out), static_cast<float*>(c_out), batch, t_len, feat);
-    return cudaGetLastError();
+    __device__ size_t out_at(int dir, int r, int step) const {
+        return xw_row(dir, r, step) * hidden;
+    }
+};
+
+// The forward's scratch: three bf16 pieces of xs (T*2B, F) and of W (2F, 4H).
+size_t fwd_scratch_elems(size_t rows2, int feat, int hidden) {
+    return 3 * (rows2 * feat + 2 * static_cast<size_t>(feat) * 4 * hidden);
+}
+
+cudaError_t launch_fwd(const void* xs, const void* w, const void* u, const void* b, void* h_out,
+                       void* c_out, void* xw, void* scratch, long long scratch_bytes, int batch,
+                       int t_len, int feat, int hidden, int cluster, int rows, int* chosen,
+                       cudaStream_t stream) {
+    const size_t rows2 = 2 * static_cast<size_t>(batch) * t_len;
+    const int gates = 4 * hidden;
+    if (feat % 8 || hidden % 8 || scratch == nullptr ||
+        static_cast<size_t>(scratch_bytes) < sizeof(bf16) * fwd_scratch_elems(rows2, feat, hidden))
+        return cudaErrorInvalidValue;
+    int per_dir = 0;
+    cudaError_t err = plan_fwd_sweep<StackedForward>(batch, hidden, cluster, rows, per_dir, chosen);
+    if (err != cudaSuccess) return err;
+    // (pieces) xs and W
+    bf16* xp = static_cast<bf16*>(scratch);
+    bf16* wp = xp + 3 * rows2 * feat;
+    err = launch_split(xs, xp, rows2, feat, stream);
+    if (err == cudaSuccess) err = launch_split(w, wp, 2 * static_cast<size_t>(feat), gates, stream);
+    if (err != cudaSuccess) return err;
+    // (a) xw = xs.W + b for every step at once, both directions
+    const StackedXH xh{Pieces{xp, feat, 3}, Pieces{}, batch, t_len, feat, hidden, 1.0f / batch};
+    const StackedGateProblem gp{xh, Pieces{wp, gates, 3}, Pieces{}, static_cast<const float*>(b),
+                                static_cast<float*>(xw), gates, feat};
+    err = launch_product(gp, gates, batch * t_len, 2, stream);
+    if (err != cudaSuccess) return err;
+    // (b) the sweep
+    const StackedForward s{static_cast<const float*>(xw), static_cast<const float*>(u),
+                           static_cast<float*>(h_out), static_cast<float*>(c_out), batch, t_len,
+                           hidden};
+    return launch_fwd_sweep(s, cluster, rows, per_dir, stream);
 }
 
 }  // namespace
@@ -412,15 +360,22 @@ cudaError_t launch_fwd(const void* xs, const void* w, const void* u, const void*
 // Plain C entry points for ctypes, float32 only. Each launches on `stream`,
 // does not synchronise, and returns the launch error as an int (0: none).
 
-// The forward: h_out and c_out (T, 2B, H) from xs (T, 2B, F).
+// The forward: h_out (T, 2B, H) and, unless null, c_out (T, 2B, H) from xs
+// (T, 2B, F), in three parts: the pieces of xs and W into scratch
+// (scratch_bytes >= 2 * 3 * (T*2B*F + 2F*4H)), xw = xs.W + b into the
+// (T, 2B, 4H) float32 buffer xw, and the sweep at the cluster size and rows
+// per tile given, or chosen where either is 0; chosen, unless null, gets
+// four ints (lstm_sweep.cuh: plan_fwd_sweep). F and H must be multiples of
+// 8, and xs, w, u, b, xw and scratch 16-byte aligned; cudaErrorInvalidValue
+// otherwise, and where the geometry does not fit or launch.
 extern "C" int clair_bilstm_train_fwd(const void* xs, const void* w, const void* u,
-                                      const void* b, void* h_out, void* c_out, int batch,
-                                      int t_len, int feat, int hidden, void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err = batch >= kLargeBatch
-        ? launch_fwd<kFwdRowsLarge>(xs, w, u, b, h_out, c_out, batch, t_len, feat, hidden, s)
-        : launch_fwd<kFwdRowsSmall>(xs, w, u, b, h_out, c_out, batch, t_len, feat, hidden, s);
-    return static_cast<int>(err);
+                                      const void* b, void* h_out, void* c_out, void* xw,
+                                      void* scratch, long long scratch_bytes, int batch,
+                                      int t_len, int feat, int hidden, int cluster, int rows,
+                                      int* chosen, void* stream) {
+    return static_cast<int>(launch_fwd(xs, w, u, b, h_out, c_out, xw, scratch, scratch_bytes,
+                                       batch, t_len, feat, hidden, cluster, rows, chosen,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 // The backward: dx (T, 2B, F) unless null, and the partial sums of dW, dU

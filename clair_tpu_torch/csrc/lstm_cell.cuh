@@ -1,7 +1,8 @@
 // Device helpers shared by the port's LSTM kernels: element loads as float,
-// stores from float, the gate nonlinearity, and the tensor-core building
-// blocks (cp.async, ldmatrix, mma.sync m16n8k16 bf16) of the streaming
-// forward and both backwards.
+// stores from float, the gate nonlinearity, the tensor-core building blocks
+// (cp.async, ldmatrix, mma.sync m16n8k16 bf16) and the split cluster
+// barrier of the two cluster forwards (bilstm_stream_fwd.cu, lstm_sweep.cuh)
+// and both backwards.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,6 +90,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The two halves of a thread-block cluster's barrier, split so that work
+// that needs no peer can run between them: arrive releases this thread's
+// earlier writes (shared memory of peers included), wait acquires every
+// peer's.
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Let `kernel` take `bytes` of dynamic shared memory (above 48 KB only after

@@ -1,49 +1,93 @@
-"""Both BiLSTM layers in one launch, forward only, float32: a hand-written
-CUDA kernel for Hopper.
+"""Both BiLSTM layers, forward only, float32, on the resident training
+forward's kernels for Hopper.
 
 Port of clair_tpu/ops/pallas_bilstm2.py: ``_bilstm2_kernel`` (through
-``_bilstm2_pallas``) is ``csrc/bilstm2.cu``, which says what bounds it and
-how it is laid out; ``bilstm2(params1, params2, x)`` is ``bilstm2_pallas``:
-``bilstm(params2, bilstm(params1, x))`` for (B, T, F) -> (B, T, 2*H2) in
-float32, with layer 1's output kept on chip. Like the JAX function it is a
-library function on no path of the model, and forward only: when a
-gradient is wanted it raises, on either device.
+``_bilstm2_pallas``); ``bilstm2(params1, params2, x)`` is
+``bilstm2_pallas``: ``bilstm(params2, bilstm(params1, x))`` for (B, T, F)
+-> (B, T, 2*H2) in float32. Like the JAX function it is a library function
+on no path of the model, and forward only: when a gradient is wanted it
+raises, on either device.
 
-A CUDA tensor goes to the kernel, or the wrapper raises; a CPU tensor goes
-to the plain version, ``bilstm2_reference`` (the composition of the plain
-layers), also the kernel's yardstick on the card. ``bilstm2.launches``
-counts the kernel's launches.
+Design: each layer is the resident training forward's three parts
+(``ops/bilstm_train.py:_forward_launch``, ``csrc/bilstm_train.cu``): the
+bf16 pieces of the layer's input and W, xw = input.W + b for every step at
+once on the tensor cores, and the float32 forward sweep of
+``csrc/lstm_sweep.cuh``, which holds U's three bf16 pieces across a
+thread-block cluster and carries h.U on ``mma.sync``. The wrapper stacks
+the two directions of x into that layout (T, 2B, F), runs layer 1 without
+its cell states, forms layer 2's stacked input from layer 1's stacked h by
+torch index ops, runs layer 2 and unstacks its h.
+
+What bounds it: the serial chain of 2 x T steps (each layer's sweep), and
+the products of the input projections. Unlike the TPU kernel, layer 1's
+output does not stay on chip: at B = 512 it is 17 MB and layer 2's xw 69
+MB, both round trips together about 50 us at 3.35 TB/s, against about 2
+ms for the same two layers in torch.nn.LSTM (cuDNN); the TPU kernel's own
+verdict (pallas_bilstm2.py:3-11) is that the intermediate's traffic was
+not its limiter there either. Measured on an H100 80GB HBM3 at 700 W at
+B = 512 (chip_smoke.py, its kernel line): 0.8456 ms against cuDNN's 1.9657
+in the same run. The design before this one kept layer 1's h of a 4-row
+tile in shared memory and ran float32 FMA, re-reading the weights from L2
+every step: 2.1605 and 2.1174 ms against this design's 0.8351 and 0.8271,
+in turns in one run (tools/torch_step_compare.py --kernels).
+
+A CUDA tensor goes to the kernels, or the wrapper raises (F and the hidden
+sizes must be multiples of 8 there, and each layer's sweep must fit a
+CTA); a CPU tensor goes to the plain version, ``bilstm2_reference`` (the
+composition of the plain layers; ``emulate_kernel`` runs the kernels'
+split-bf16 products), also the kernels' yardstick on the card.
+``bilstm2.launches`` counts this wrapper's calls that reach the kernels;
+they do not move ``bilstm_train.launches``.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict
 
 import torch
 
-from clair_tpu_torch.models.bilstm import bilstm
-from clair_tpu_torch.ops.build import launch, on_cuda
-
-_KERNEL = "bilstm2"
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-_MAX_HIDDEN = 512  # two threads per hidden unit index, one per direction
-_TILE_ROWS = 4     # rows per block (kRows in the source)
-# the most shared memory a block may take on Hopper; the kernel keeps layer
-# 1's h of its tile over all steps there
-_SMEM_LIMIT = 227 * 1024
+from clair_tpu_torch.models.bilstm import _stack_directions, _unstack_outputs, bilstm
+from clair_tpu_torch.ops.bilstm_train import (
+    _forward_launch, _stack_params, bilstm_train_reference,
+)
+from clair_tpu_torch.ops.build import on_cuda
 
 
-def bilstm2_reference(params1: Dict, params2: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: the two plain layers in float32."""
-    def f32(p):
-        return {d: {k: v.float() for k, v in q.items()} for d, q in p.items()}
-
-    return bilstm(f32(params2), bilstm(f32(params1), x.float()))
+def _f32(params: Dict) -> Dict:
+    return {d: {k: v.float() for k, v in q.items()} for d, q in params.items()}
 
 
-def _stacked(params: Dict, key: str) -> torch.Tensor:
-    return torch.stack([params["fw"][key], params["bw"][key]]).float().contiguous()
+def bilstm2_reference(params1: Dict, params2: Dict, x: torch.Tensor, *,
+                      emulate_kernel: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: the two plain layers in float32.
+    ``emulate_kernel``: each layer as the kernels compute it, on the
+    stacked layout with both products as three-piece split-bf16 products
+    (``bilstm_train_reference(..., emulate_kernel=True)``)."""
+    if not emulate_kernel:
+        return bilstm(_f32(params2), bilstm(_f32(params1), x.float()))
+
+    def layer(params, inputs):
+        xs = _stack_directions(inputs).contiguous()
+        h_out, _ = bilstm_train_reference(xs, *_stack_params(params), emulate_kernel=True)
+        return _unstack_outputs(h_out, inputs.shape[0])
+
+    return layer(params2, layer(params1, x.float()))
+
+
+def _layers(params1: Dict, params2: Dict, x: torch.Tensor, cluster: int = 0, rows: int = 0):
+    """Both layers on the card at a sweep geometry (0: the kernel's
+    choice): (B, T, 2*H2), or None where the geometry does not launch.
+    Counts no launch."""
+    batch = x.shape[0]
+    h_out = x
+    for params in (params1, params2):
+        xs = _stack_directions(h_out).contiguous()
+        out = _forward_launch(xs, *_stack_params(params), with_cell=False, cluster=cluster,
+                              rows=rows)
+        if out is None:
+            return None
+        h_out = _unstack_outputs(out[0], batch)
+    return h_out
 
 
 def bilstm2(params1: Dict, params2: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -57,26 +101,19 @@ def bilstm2(params1: Dict, params2: Dict, x: torch.Tensor) -> torch.Tensor:
     x = x.float().contiguous()
     if x.dim() != 3 or min(x.shape) < 1:
         raise ValueError(f"x must be a non-empty (B, T, F) tensor, got {tuple(x.shape)}")
-    batch, t_len, feat = x.shape
-    w1, u1, b1 = (_stacked(params1, k) for k in ("w", "u", "b"))
-    w2, u2, b2 = (_stacked(params2, k) for k in ("w", "u", "b"))
-    h1, h2 = u1.shape[1], u2.shape[1]
-    want = {"w1": (2, feat, 4 * h1), "u1": (2, h1, 4 * h1), "b1": (2, 4 * h1),
-            "w2": (2, 2 * h1, 4 * h2), "u2": (2, h2, 4 * h2), "b2": (2, 4 * h2)}
-    for name, t in zip(want, (w1, u1, b1, w2, u2, b2)):
-        if tuple(t.shape) != want[name] or t.device != x.device:
-            raise ValueError(f"{name} must be {want[name]} on {x.device}, "
-                             f"got {tuple(t.shape)} on {t.device}")
-    if not 1 <= max(h1, h2) <= _MAX_HIDDEN:
-        raise ValueError(f"hidden sizes {h1}, {h2} outside 1..{_MAX_HIDDEN}")
-    smem = 4 * _TILE_ROWS * (t_len * 2 * h1 + 2 * (feat + max(h1, h2)))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"T = {t_len}, F = {feat}, H1 = {h1} need {smem} bytes of shared "
-                         f"memory a block, above {_SMEM_LIMIT}")
-    out = torch.empty((batch, t_len, 2 * h2), dtype=torch.float32, device=x.device)
-    launch(_KERNEL, "clair_bilstm2", _ARGTYPES, x.device,
-           x.data_ptr(), w1.data_ptr(), u1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-           u2.data_ptr(), b2.data_ptr(), out.data_ptr(), batch, t_len, feat, h1, h2)
+    feat = x.shape[2]
+    h1, h2 = params1["fw"]["u"].shape[0], params2["fw"]["u"].shape[0]
+    want = {"1": (feat, h1), "2": (2 * h1, h2)}
+    for name, params in (("1", params1), ("2", params2)):
+        f, h = want[name]
+        shapes = {"w": (f, 4 * h), "u": (h, 4 * h), "b": (4 * h,)}
+        for d in ("fw", "bw"):
+            for k, shape in shapes.items():
+                t = params[d][k]
+                if tuple(t.shape) != shape or t.device != x.device:
+                    raise ValueError(f"params{name}[{d!r}][{k!r}] must be {shape} on "
+                                     f"{x.device}, got {tuple(t.shape)} on {t.device}")
+    out = _layers(params1, params2, x)
     bilstm2.launches += 1
     return out
 

@@ -9,8 +9,16 @@ out. ``bilstm_train(params, x)`` is the drop-in for ``models.bilstm.bilstm``:
 (B, T, F) -> (B, T, 2H), float32 only.
 
 The layout is the JAX kernels': both directions stacked on the batch axis,
-xs (T, 2B, F) with the time-reversed sequence in rows B.., so the backward
-sweep runs t = T-1 .. 0 for both, with zero state before t = 0. The
+xs (T, 2B, F) with the time-reversed sequence in rows B.., so the forward
+runs t = 0 .. T-1 and the backward sweep t = T-1 .. 0 for both, with zero
+state before t = 0. The forward is three parts behind one entry point: xs
+and W split into three bf16 pieces, xw = xs.W + b for every step at once
+(the backward's gate product on the x columns), and the float32 forward
+sweep of ``csrc/lstm_sweep.cuh`` (U's pieces held across a thread-block
+cluster, h.U on the tensor cores); ``_forward_launch`` runs them, counting
+nothing, for this module's wrapper and for ``ops/bilstm2.py``, and
+``sweep_layout`` keeps the sweep's shared-memory arithmetic, so a width
+that no geometry fits raises ValueError before a launch. The
 backward is four kernels behind one entry point, built from the streaming
 backward's parts (``csrc/mma_product.cuh``): every step's gates in one
 tensor-core product, a float32 reverse sweep that carries dh and dc and
@@ -29,10 +37,11 @@ states) with the backward; dx is computed only when the input requires a
 gradient (not for lstm1). A CUDA tensor goes to the kernels, or the
 wrappers raise. A CPU tensor goes to the plain versions,
 ``bilstm_train_reference`` and ``bilstm_train_backward_reference``, which
-are also the kernels' yardsticks on the card; the backward's
-``emulate_kernel`` runs the kernel's split-bf16 products on the CPU.
+are also the kernels' yardsticks on the card; their ``emulate_kernel``
+runs the kernels' split-bf16 products on the CPU.
 ``bilstm_train.launches`` and ``bilstm_train_backward.launches`` count each
-call of a kernel's entry point (the backward's runs four kernels).
+call of a kernel's entry point (the forward's runs three kernels and the
+backward's four).
 """
 
 from __future__ import annotations
@@ -47,27 +56,84 @@ from clair_tpu_torch.models.bilstm import _gate_update, _stack_directions, _unst
 from clair_tpu_torch.ops.bilstm_stream import (
     _MAX_GRID_Y, _ROW_TILE, KERNEL_PIECES, _split_rows, split_bf16_product,
 )
-from clair_tpu_torch.ops.build import launch, on_cuda
+from clair_tpu_torch.ops.build import entry, launch, on_cuda
 
 _KERNEL = "bilstm_train"
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-_MAX_HIDDEN = 1024  # forward and the backward's sweep: one thread per hidden unit
+_MAX_HIDDEN = 1024  # the backward's sweep: one thread per hidden unit
+_CUDA_ERROR_INVALID_VALUE = 1  # the forward's answer to a geometry that does not fit
+
+# The forward sweep's geometry (csrc/lstm_sweep.cuh: SweepGeometry, the same
+# arithmetic): cluster sizes, rows per tile, and what a CTA may take.
+SWEEP_CLUSTERS = (2, 4, 8)
+SWEEP_ROWS = tuple(range(8, 129, 8))
+_SMEM_LIMIT = 227 * 1024  # shared memory a block may take on Hopper
+_SWEEP_WARPS, _SWEEP_MAX_ITEMS = 8, 2
 
 
-def bilstm_train_reference(xs, w, u, b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the forward kernel on the stacked layout:
+def sweep_layout(hidden: int, cluster: int, rows: int) -> Tuple[int, int]:
+    """(shared-memory bytes, warp items) of one CTA of the forward sweep:
+    U's three bf16 pieces for the four gates of its uc = H / C units
+    (rounded up to 8) over the depth C * uc, and two h tiles of three
+    pieces; items of 8 units by 16 rows, or 8 where the rows are no
+    multiple of 16."""
+    uc = -(-hidden // (8 * cluster)) * 8
+    hk = cluster * uc
+    item_rows = 16 if rows % 16 == 0 else 8
+    smem = 2 * 3 * 4 * uc * hk + 2 * 2 * 3 * rows * hk
+    return smem, uc // 8 * (rows // item_rows)
+
+
+def sweep_geometries(hidden: int):
+    """Every (cluster, rows) whose CTA fits: shared memory and warp items.
+    Whether it launches is the card's to say (clusters it holds at once)."""
+    out = []
+    for cluster in SWEEP_CLUSTERS:
+        for rows in SWEEP_ROWS:
+            smem, items = sweep_layout(hidden, cluster, rows)
+            if smem <= _SMEM_LIMIT and items <= _SWEEP_WARPS * _SWEEP_MAX_ITEMS:
+                out.append((cluster, rows))
+    return out
+
+
+def _check_sweep(feat: int, hidden: int, rows: int) -> None:
+    """Raise before any launch where the forward's kernels cannot take the
+    widths."""
+    if feat % 8 or hidden % 8:
+        # the product stages 16-byte chunks of xs rows; the sweep of xw rows
+        raise ValueError(f"the forward kernels take F and H in multiples of 8, not "
+                         f"F = {feat}, H = {hidden}")
+    if not sweep_geometries(hidden):
+        least = sweep_layout(hidden, SWEEP_CLUSTERS[-1], 8)[0]
+        raise ValueError(f"hidden size {hidden}: the forward sweep's CTA needs {least} bytes "
+                         f"of shared memory even at a cluster of {SWEEP_CLUSTERS[-1]} and 8 "
+                         f"rows, above the {_SMEM_LIMIT} a block may take")
+    if -(-rows // _ROW_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"T*B = {rows} rows exceed the forward product's grid")
+
+
+def bilstm_train_reference(xs, w, u, b, *, emulate_kernel=False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernels on the stacked layout:
     xs (T, 2B, F), w (2, F, 4H), u (2, H, 4H), b (2, 4H), all float32 ->
-    (h_out, c_out), each (T, 2B, H) float32."""
+    (h_out, c_out), each (T, 2B, H) float32. ``emulate_kernel``: both
+    products, xs.W and every step's h.U, run as the kernels' split-bf16
+    product (``split_bf16_product``, three pieces an operand)."""
     t_len, n2, feat = xs.shape
     batch, hidden = n2 // 2, u.shape[1]
+    product = torch.einsum
+    if emulate_kernel:
+        product = functools.partial(split_bf16_product, pieces=KERNEL_PIECES[torch.float32])
     # hoisted input projection of both directions: (T, 2, B, 4H)
-    xw = torch.einsum("tdbf,dfg->tdbg", xs.reshape(t_len, 2, batch, feat), w) + b[None, :, None]
+    xw = product("tdbf,dfg->tdbg", xs.reshape(t_len, 2, batch, feat), w) + b[None, :, None]
     h = torch.zeros((2, batch, hidden), dtype=torch.float32, device=xs.device)
     c = torch.zeros_like(h)
     hs, cs = [], []
     for t in range(t_len):
-        c, h = _gate_update(xw[t] + torch.bmm(h, u), c, torch.float32)
+        hu = product("dbk,dkg->dbg", h, u) if emulate_kernel else torch.bmm(h, u)
+        c, h = _gate_update(xw[t] + hu, c, torch.float32)
         hs.append(h)
         cs.append(c)
     return (torch.stack(hs).reshape(t_len, n2, hidden),
@@ -153,22 +219,49 @@ def _check(xs, w, u, b) -> None:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want[name]}")
 
 
+def _fwd_scratch_bytes(rows2: int, feat: int, hidden: int) -> int:
+    """The forward's scratch: three bf16 pieces of xs (T*2B, F) and W (2F, 4H)."""
+    return 2 * 3 * (rows2 * feat + 2 * feat * 4 * hidden)
+
+
+def _forward_launch(xs, w, u, b, *, with_cell=True, cluster=0, rows=0):
+    """The forward kernels on the card, on checked stacked inputs: the
+    pieces of xs and W, xw = xs.W + b for every step at once, and the sweep
+    at ``cluster`` CTAs and ``rows`` rows a tile (0: the kernel's choice).
+    (h_out, c_out or None), or None where a given geometry does not fit or
+    launch. Counts no launch: ``bilstm_train`` and ``bilstm2`` count their
+    own calls, and the checks of every geometry count none."""
+    t_len, n2, feat = xs.shape
+    hidden = u.shape[1]
+    _check_sweep(feat, hidden, t_len * n2 // 2)
+    h_out = torch.empty((t_len, n2, hidden), dtype=torch.float32, device=xs.device)
+    c_out = torch.empty_like(h_out) if with_cell else None
+    xw = torch.empty((t_len, n2, 4 * hidden), dtype=torch.float32, device=xs.device)
+    scratch = torch.empty(_fwd_scratch_bytes(t_len * n2, feat, hidden), dtype=torch.uint8,
+                          device=xs.device)
+    fn = entry(_KERNEL, "clair_bilstm_train_fwd", _FWD_ARGTYPES)
+    with torch.cuda.device(xs.device):
+        err = fn(xs.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(), h_out.data_ptr(),
+                 None if c_out is None else c_out.data_ptr(), xw.data_ptr(), scratch.data_ptr(),
+                 scratch.numel(), n2 // 2, t_len, feat, hidden, cluster, rows, None,
+                 torch.cuda.current_stream().cuda_stream)
+    if err == _CUDA_ERROR_INVALID_VALUE and (cluster or rows):
+        return None
+    if err != 0:
+        raise RuntimeError(f"{_KERNEL} (clair_bilstm_train_fwd) launch failed: CUDA error {err}")
+    return h_out, c_out
+
+
 def bilstm_train_forward(xs, w, u, b) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward of one layer on the stacked layout: (h_out, c_out), each
     (T, 2B, H) float32. Same inputs and outputs as
-    ``bilstm_train_reference``; a CUDA tensor runs the kernel."""
+    ``bilstm_train_reference``; a CUDA tensor runs the kernels."""
     if not on_cuda(xs, "bilstm_train"):
         return bilstm_train_reference(xs, w, u, b)
     _check(xs, w, u, b)
-    t_len, n2, feat = xs.shape
-    hidden = u.shape[1]
-    h_out = torch.empty((t_len, n2, hidden), dtype=torch.float32, device=xs.device)
-    c_out = torch.empty_like(h_out)
-    launch(_KERNEL, "clair_bilstm_train_fwd", _FWD_ARGTYPES, xs.device,
-           xs.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(), h_out.data_ptr(),
-           c_out.data_ptr(), n2 // 2, t_len, feat, hidden)
+    out = _forward_launch(xs, w, u, b)
     bilstm_train.launches += 1
-    return h_out, c_out
+    return out
 
 
 def _scratch_bytes(rows2: int, feat: int, hidden: int) -> int:

@@ -8,10 +8,13 @@ chip_smoke.train_step_times on examples/ont_production.ckpt.
 
 ``--train_pair`` times the step under ``use_pallas_train_bilstm`` (the
 resident train pair, float32 only) instead of the streaming pair.
-``--kernels`` times, in the same turns, the two backwards at the shapes of
-chip_smoke.py's kernel line (B = 10,000, both layers, dx for lstm2 only):
-row 6 in float32 and row 2 in bfloat16 and float32 (CUDA events, mean of 5
-calls after a warm-up, through each tree's own wrappers).
+``--kernels`` times, in the same turns, the kernels at the shapes of
+chip_smoke.py's kernel line (CUDA events, mean of 5 calls after a warm-up,
+through each tree's own wrappers): the two backwards (B = 10,000, both
+layers, dx for lstm2 only), row 6 in float32 and row 2 in bfloat16 and
+float32; the resident forward (row 5, float32, both layers) at B = 10,000
+and at B = 512; bilstm2 (row 4, float32) and the streaming forward (row 1,
+bfloat16, both layers) at B = 512.
 Prints each run's ms and the card's name and power limit. Needs a CUDA card.
 """
 
@@ -38,12 +41,21 @@ print(json.dumps({d: chip_smoke.train_step_times(params, torch.device("cuda"), d
 KERNELS = """
 import json, numpy as np, torch
 import chip_smoke as cs
+from clair_tpu_torch.ops.bilstm2 import bilstm2
 from clair_tpu_torch.ops.bilstm_stream import _forward, _stack_params, bilstm_stream_backward
 from clair_tpu_torch.ops.bilstm_train import bilstm_train_backward, bilstm_train_forward
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
-ms = {"row 6 float32": 0.0, "row 2 bfloat16": 0.0, "row 2 float32": 0.0}
+ms = {"row 6 float32": 0.0, "row 2 bfloat16": 0.0, "row 2 float32": 0.0,
+      "row 5 float32": 0.0, "row 5 float32 B=512": 0.0, "row 1 bfloat16 B=512": 0.0}
 for feat in (32, 256):
+    for batch, key in ((10000, "row 5 float32"), (512, "row 5 float32 B=512")):
+        xs, w, u, b, _ = cs.stacked_inputs((batch, 33, feat, 128), dev, feat + 5)
+        ms[key] += cs.cuda_ms(lambda: bilstm_train_forward(xs, w, u, b), 5 if batch > 512 else 20)
+    rs = np.random.RandomState(feat)
+    w, u, b = _stack_params(cs.lstm_params(rs, feat, 128, dev), torch.bfloat16)
+    x = torch.tensor(rs.randn(512, 33, feat), dtype=torch.bfloat16, device=dev)
+    ms["row 1 bfloat16 B=512"] += cs.cuda_ms(lambda: _forward(x, w, u, b, with_cell=False))
     need_dx = feat != 32  # lstm1's input takes no gradient
     xs, w, u, b, dh = cs.stacked_inputs((10000, 33, feat, 128), dev, feat + 5)
     h, c = bilstm_train_forward(xs, w, u, b)
@@ -59,6 +71,11 @@ for feat in (32, 256):
         h, c = _forward(xd, w, u, b, with_cell=True)
         ms[f"row 2 {str(dtype)[6:]}"] += cs.cuda_ms(
             lambda: bilstm_stream_backward(xd, w, u, b, h, c, dhd, need_dx=need_dx), 5)
+rs = np.random.RandomState(9)
+p1, p2 = cs.lstm_params(rs, 32, 128, dev), cs.lstm_params(rs, 256, 128, dev)
+x = torch.tensor(rs.randn(512, 33, 32), dtype=torch.float32, device=dev)
+with torch.no_grad():
+    ms["row 4 float32 B=512"] = cs.cuda_ms(lambda: bilstm2(p1, p2, x))
 print(json.dumps(ms))
 """
 
@@ -78,7 +95,7 @@ def main():
     parser.add_argument("--train_pair", action="store_true",
                         help="the step under use_pallas_train_bilstm (float32)")
     parser.add_argument("--kernels", action="store_true",
-                        help="also time rows 2 and 6 at the kernel line's shapes")
+                        help="also time rows 1, 2, 4, 5 and 6 at the kernel line's shapes")
     args = parser.parse_args()
     dtypes, flags = args.dtypes, {}
     if args.train_pair:
@@ -95,7 +112,7 @@ def main():
               flush=True)
         if args.kernels:
             ms = run(tree, KERNELS)
-            print(f"{label}: backwards " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()),
+            print(f"{label}: kernels " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()),
                   flush=True)
 
 
