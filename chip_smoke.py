@@ -15,7 +15,11 @@ Phases, each printing its results and seconds:
        every TRAIN_GEOMETRIES geometry; its forward at every launchable
        (cluster size, rows per tile) of the sweep at a small batch; a CUDA
        width the kernels do not take raises
-   3c. use_pallas_bilstm's recurrence kernel against its plain version
+   3c. use_pallas_bilstm's recurrence kernel (the sweep on the caller's
+       xw) against its plain version in the three dtype pairs the model
+       gives it, at the launcher's geometry and at every launchable
+       (cluster size, rows per tile) for U's piece count; a CUDA width the
+       sweep does not take raises
    3d. the two-layer bilstm2 against the two plain layers, at every
        BILSTM2_BATCHES batch and every launchable sweep geometry
 4. the streaming backward kernel against its plain PyTorch version, and
@@ -39,7 +43,9 @@ Phases, each printing its results and seconds:
    the evaluation report, and both kernels' launch counts in each run
    8b. ``train_model`` under ``use_pallas_train_bilstm``, float32, on the
        same bin: the same checks, only the train pair launching
-9. times (CUDA events after warm-up) beside the card's name and power limit
+9. times (CUDA events after warm-up) beside the card's name and power limit;
+   the model's calling forward at B = 512 in both dtypes, streaming and
+   under use_pallas_bilstm
    9a. the two backwards (rows 2 and 6) and the resident forward (row 5)
        split by kernel (torch.profiler) at B = 10,000
    9b. the other kernels' times, and the train step under each training pair
@@ -101,6 +107,7 @@ KERNELS = {
         "name": "bilstm_recurrence",
         "route": "cuda",
         "source": "clair_tpu_torch/csrc/bilstm.cu",
+        "sources": ["clair_tpu_torch/csrc/bilstm.cu", "clair_tpu_torch/csrc/lstm_sweep.cuh"],
         "replaces": "clair_tpu/ops/pallas_bilstm.py:36",
     },
     "bilstm2": {
@@ -141,8 +148,9 @@ BWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 256, 128)
 # the train pair at the training batch (10,000) and at 512 for both layers,
 # a ragged batch (13, no multiple of the sweeps' 8- and 16-row tiles) and a
 # tiny odd geometry;
-# use_pallas_bilstm's kernel at the calling batch and a ragged
-# one; bilstm2 at the calling batch, a ragged one and the training batch
+# use_pallas_bilstm's kernel at the calling batch and a ragged one (and, at
+# every sweep geometry, also GEOMETRY_BATCH and the tiny odd geometry);
+# bilstm2 at the calling batch, a ragged one and the training batch
 TRAIN_GEOMETRIES = ((10000, 33, 32, 128), (10000, 33, 256, 128), (512, 33, 32, 128),
                     (512, 33, 256, 128), (13, 33, 256, 128), (8, 7, 16, 8))
 PRECOMPUTED_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (13, 33, 32, 128),
@@ -457,25 +465,56 @@ PRECOMPUTED_DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfl
 
 def check_precomputed(dev):
     """Phase 3c: the recurrence kernel vs its plain version on the same xw
-    and u, in each dtype pair; float32 output, within F32_TOL (both compute
-    in float32 from the same values)."""
+    and u, in each dtype pair (U as one bf16 piece or three), float32
+    output within F32_TOL (both compute in float32 from the same values):
+    at the launcher's geometry (one count each) and at every (cluster size,
+    rows per tile) of the sweep that launches for U's piece count (no
+    count), at a small ragged batch of each layer's width, at
+    PRECOMPUTED_GEOMETRIES and at a tiny odd geometry. No fallback to the
+    plain version for a CUDA tensor: a width the sweep cannot take raises."""
     from clair_tpu_torch.ops.bilstm import (
-        bilstm_precomputed, bilstm_recurrence, bilstm_recurrence_reference,
+        _launch, bilstm_recurrence, bilstm_recurrence_reference, u_pieces,
     )
+    from clair_tpu_torch.ops.bilstm_train import sweep_geometries
 
-    max_err = 0.0
-    before = bilstm_precomputed.launches
-    for geometry in PRECOMPUTED_GEOMETRIES:
+    max_err, calls, before = 0.0, 0, kernel_counts()
+    shapes = ([(GEOMETRY_BATCH, T_LEN, feat, HIDDEN) for _, feat in LAYERS]
+              + list(PRECOMPUTED_GEOMETRIES) + [(8, 7, 16, 8)])
+    for geometry in shapes:
         for p_dtype, x_dtype in PRECOMPUTED_DTYPES:
             xw, u = precomputed_inputs(geometry, dev, p_dtype, x_dtype, sum(geometry))
-            got, want = bilstm_recurrence(xw, u), bilstm_recurrence_reference(xw, u)
+            want = bilstm_recurrence_reference(xw, u)
+            got = bilstm_recurrence(xw, u)
+            calls += 1
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             assert got.dtype == torch.float32 and err <= F32_TOL, (geometry, err)
-            max_err = max(max_err, err)
-            print(f"  recurrence vs plain {geometry} xw {str(xw.dtype)[6:]} "
-                  f"u {str(u.dtype)[6:]}: max|dh| {err:.3e}")
-    assert bilstm_precomputed.launches == before + 3 * len(PRECOMPUTED_GEOMETRIES)
+            candidates = sweep_geometries(geometry[3], u_pieces(u))
+            launched, worst = [], err
+            for cluster, rows in candidates:
+                got = _launch(xw, u, cluster, rows)
+                if got is None:
+                    continue
+                torch.cuda.synchronize()
+                e = (got - want).abs().max().item()
+                assert e <= F32_TOL, (geometry, str(xw.dtype), str(u.dtype), cluster, rows, e)
+                launched.append((cluster, rows))
+                worst = max(worst, e)
+            assert launched, (geometry, xw.dtype, u.dtype)
+            max_err = max(max_err, worst)
+            print(f"  recurrence vs plain {geometry} xw {str(xw.dtype)[6:]} u {str(u.dtype)[6:]} "
+                  f"(U in {u_pieces(u)} piece(s)): launcher's max|dh| {err:.3e}; at every "
+                  f"launchable (cluster, rows), {len(launched)} of {len(candidates)} that fit: "
+                  f"max|dh| {worst:.3e}")
+    launched = launched_since(before)
+    assert launched == {**dict.fromkeys(before, 0), "bilstm_precomputed": calls}, launched
+    xw, u = precomputed_inputs((4, 5, 16, 12), dev, torch.float32, torch.float32, 7)
+    try:
+        bilstm_recurrence(xw, u)
+    except ValueError as refused:
+        print(f"  recurrence at H = 12 on the card raises: {refused}")
+    else:
+        raise AssertionError("the recurrence took H = 12 on the card")
     return max_err
 
 
@@ -1087,28 +1126,34 @@ def yardsticks(dev):
     B = 10,000, both layers, bf16 for the streaming pair and float32 for
     the train pair, lstm1 without dx), and library_ms, the time of
     torch.nn.LSTM computing the same function on the same shapes (row 3:
-    with an identity weight_ih, fed xw; None where it refuses the dtype)."""
+    with an identity weight_ih, fed xw; None where it refuses the dtype).
+    Prints beside each bound the tensor-core term of the kernel's passes
+    (passes x operations / the bf16 peak): the float32 rows run their
+    products as six bf16 passes, row 3 its h.U as three (U bf16)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    bounds = {
-        "bilstm_stream": bound([fwd_work(CALL_BATCH, f, bf16) for _, f in LAYERS], bf16),
-        "bilstm_stream_backward": bound(
-            [bwd_work(TRAIN_BATCH, f, bf16, need_dx=f != 32) for _, f in LAYERS], bf16),
-        "bilstm_train": bound([fwd_work(TRAIN_BATCH, f, f32, with_cell=True, stacked=True)
-                               for _, f in LAYERS], f32),
-        "bilstm_train_backward": bound(
+    works = {
+        "bilstm_stream": ([fwd_work(CALL_BATCH, f, bf16) for _, f in LAYERS], bf16, 1),
+        "bilstm_stream_backward": (
+            [bwd_work(TRAIN_BATCH, f, bf16, need_dx=f != 32) for _, f in LAYERS], bf16, 1),
+        "bilstm_train": ([fwd_work(TRAIN_BATCH, f, f32, with_cell=True, stacked=True)
+                          for _, f in LAYERS], f32, 6),
+        "bilstm_train_backward": (
             [bwd_work(TRAIN_BATCH, f, f32, need_dx=f != 32, stacked=True) for _, f in LAYERS],
-            f32),
+            f32, 6),
         # the recurrence alone on precomputed xw: 2 * 2B * T * H * 4H per
         # layer, xw (lstm1 bf16, lstm2 float32) and U read, float32 h written
-        "bilstm_precomputed": bound(
+        "bilstm_precomputed": (
             [(2 * 2 * CALL_BATCH * T_LEN * HIDDEN * 4 * HIDDEN,
               2 * T_LEN * CALL_BATCH * 4 * HIDDEN * xw_e + 2 * HIDDEN * 4 * HIDDEN * 2
-              + CALL_BATCH * T_LEN * 2 * HIDDEN * 4) for xw_e in (2, 4)], bf16),
+              + CALL_BATCH * T_LEN * 2 * HIDDEN * 4) for xw_e in (2, 4)], bf16, 3),
         # both layers, layer 1's h kept on chip
-        "bilstm2": bound([(fwd_work(CALL_BATCH, 32, f32)[0] + fwd_work(CALL_BATCH, 256, f32)[0],
-                           CALL_BATCH * T_LEN * (32 + 2 * HIDDEN) * 4
-                           + sum(2 * (f + HIDDEN) * 4 * HIDDEN * 4 for _, f in LAYERS))], f32),
+        "bilstm2": ([(fwd_work(CALL_BATCH, 32, f32)[0] + fwd_work(CALL_BATCH, 256, f32)[0],
+                      CALL_BATCH * T_LEN * (32 + 2 * HIDDEN) * 4
+                      + sum(2 * (f + HIDDEN) * 4 * HIDDEN * 4 for _, f in LAYERS))], f32, 6),
     }
+    bounds = {name: bound(w, dtype) for name, (w, dtype, _) in works.items()}
+    pass_ms = {name: passes * sum(f for f, _ in w) / PEAK_FLOPS[bf16] * 1e3
+               for name, (w, _, passes) in works.items()}
     library = dict.fromkeys(KERNELS)
     rs = np.random.RandomState(15)
     params = {f: lstm_params(rs, f, HIDDEN, dev) for _, f in LAYERS}
@@ -1156,7 +1201,8 @@ def yardsticks(dev):
     for name in KERNELS:
         ms, by = bounds[name]
         lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
-        print(f"  {name}: bound {ms:.4f} ms ({by}), library {lib}")
+        print(f"  {name}: bound {ms:.4f} ms ({by}), {works[name][2]}-pass tensor-core term "
+              f"{pass_ms[name]:.4f} ms, library {lib}")
     return bounds, library
 
 
@@ -1339,10 +1385,11 @@ def main():
                     plain_ms["bilstm_stream_backward"] += pl
     xu = torch.from_numpy(np.random.RandomState(8).randint(0, 40, (512, 33, 8, 4)).astype(np.uint8)).to(dev)
     for dtype in ("float32", "bfloat16"):
-        model = ClairNet.from_jax(params, ModelConfig(compute_dtype=dtype), dev)
-        with torch.inference_mode():
-            fwd = cuda_ms(lambda: model(_device_input(xu)))
-        print(f"  forward B=512 {dtype}: {fwd:.4f} ms, {512 / fwd * 1e3:.0f} tensors/s")
+        for kernel, flags in (("streaming", {}), ("use_pallas_bilstm", {"use_pallas_bilstm": True})):
+            model = ClairNet.from_jax(params, ModelConfig(compute_dtype=dtype, **flags), dev)
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: model(_device_input(xu)))
+            print(f"  forward B=512 {dtype} {kernel}: {fwd:.4f} ms, {512 / fwd * 1e3:.0f} tensors/s")
     for dtype in ("bfloat16", "float32"):
         step_ms, rate = train_step_times(params, dev, dtype)
         print(f"  train step B=10000 {dtype}: {step_ms:.2f} ms, {rate:.0f} samples/s "

@@ -306,6 +306,8 @@ cudaError_t launch_bwd(const void* xs, const void* w, const void* u, const void*
 // directions run t = 0 .. T-1, an entry (dir, r, t) at row (t*2 + dir)*B + r
 // of xw (T, 2B, 4H) and of h_out and c_out (T, 2B, H).
 struct StackedForward {
+    using xw_type = float;
+    using u_type = float;
     const float* xw;
     const float* u;  // (2, H, 4H)
     float* h_out;

@@ -2,10 +2,13 @@
 // cores, for Hopper (sm_90a): h (and c) of every step from every step's
 // input pre-activations xw = x.W + b, which a tensor-core product computes
 // for all steps at once beforehand (mma_product.cuh). Only h.U is serial.
-// Rows 5 and 4 of the port's kernel table run on it: the resident training
-// forward (bilstm_train.cu, for clair_tpu/ops/pallas_bilstm_train.py:
-// _fwd_kernel) and the two-layer forward (ops/bilstm2.py, for
-// clair_tpu/ops/pallas_bilstm2.py:_bilstm2_kernel).
+// Three rows of the port's kernel table run on it: the resident training
+// forward (row 5, bilstm_train.cu, for clair_tpu/ops/pallas_bilstm_train.py:
+// _fwd_kernel), the two-layer forward (row 4, ops/bilstm2.py, for
+// clair_tpu/ops/pallas_bilstm2.py:_bilstm2_kernel), both on float32 xw and
+// U, and the recurrence on precomputed projections (row 3, bilstm.cu, for
+// clair_tpu/ops/pallas_bilstm.py:_bilstm_kernel), on the caller's xw and U
+// in float32 or bf16.
 //
 // What bounds it: a step's product is small (rows x H x 4H) and the T steps
 // are serial, so the weights must stay on chip and a step's latency (the
@@ -16,18 +19,20 @@
 // so and is bound by the shared-memory loads that feed its FMAs.
 //
 // Design:
-// - Numerics: h.U as three bf16 pieces of each operand (p0 = bf16(v),
-//   p1 = bf16(v - p0), p2 = bf16(v - p0 - p1)) on mma.sync m16n8k16, the
-//   six piece pairs i + j < 3, float32 sums: float32-level products
-//   (|v - sum of pieces| <= 2^-24 |v|; mma_product.cuh, "Numerics"). The
-//   pair (0, 0) sums apart from the five smaller ones. The cell runs in
+// - Numerics: h.U with h as three bf16 pieces (p0 = bf16(v), p1 =
+//   bf16(v - p0), p2 = bf16(v - p0 - p1)) on mma.sync m16n8k16, float32
+//   sums: float32-level products (|v - sum of pieces| <= 2^-24 |v|;
+//   mma_product.cuh, "Numerics"). U has P pieces: three of a float32 U,
+//   and the six piece pairs i + j < 3; one of a bf16 U (exact as it is,
+//   its later pieces are zero), and the three pairs (h piece i, U piece 0).
+//   The pair (0, 0) sums apart from the smaller ones. The cell runs in
 //   float32 with the accurate tanhf (sigmoid through it); h and c go out
 //   in float32.
 // - A thread-block cluster of C CTAs (C in {2, 4, 8}) runs one (row tile,
 //   direction). Each CTA owns uc = H/C hidden units (rounded up to 8; units
-//   past H are zero and stay zero) and keeps U's three pieces for the four
-//   gate columns of its units in shared memory for the whole launch (384 KB
-//   / C at H = 128), gate-major as the streaming forward keeps its bf16
+//   past H are zero and stay zero) and keeps U's P pieces for the four
+//   gate columns of its units in shared memory for the whole launch (P x
+//   128 KB / C at H = 128), gate-major as the streaming forward keeps its bf16
 //   weights: per 8 units, 8 rows each of i, f, g, o, so one ldmatrix tile
 //   pair gives a lane all four gates of one unit. Rows of 16-byte chunks
 //   are XOR-swizzled, so ldmatrix reads them without bank conflicts.
@@ -49,7 +54,9 @@
 // - The launcher picks C and the rows per tile (a multiple of 8) by a cost:
 //   rounds of row tiles over the clusters the card holds at once
 //   (cudaOccupancyMaxActiveClusters, asked once per configuration) times a
-//   step's cost, which grows with the n-tiles a warp carries.
+//   step's cost, which grows with the n-tiles a warp carries and with the
+//   CTAs that share an SM (two only where U is one piece and the kernel's
+//   registers allow).
 //   ops/bilstm_train.py keeps the same carve-up arithmetic (SweepGeometry)
 //   and raises before a launch where no geometry fits.
 //
@@ -62,10 +69,20 @@
 // xw loads 0.31 / 0.45, the exchange of h 0.23 / 0.27, h_out and c_out
 // 0.19 / 0.26; sigmoid as 1 / (1 + expf(-v)) adds 0.32 / 0.17. h.U runs
 // near mma.sync's rate for six passes; the cost per step is mostly serial.
+// Row 3 (tools/torch_precomputed_sweep.py, one layer, B = 512, one round of
+// row tiles): 0.143-0.145 ms with a bf16 U (P = 1, three passes) at a
+// cluster of 2 and 16 rows, 0.187-0.191 with a float32 U (P = 3, six
+// passes); at 8 rows two CTAs share each SM and take 0.149-0.151. A bf16
+// xw widened at its load (the warp stalls there until it lands) took 0.014
+// ms more than a float32 xw; widened in the cell, as here, it costs none.
 //
-// The layout policy S (bilstm_train.cu: StackedForward) supplies xw (rows
-// of 4H float32), u ((2, H, 4H) float32), h_out and c_out (float32, c_out
-// may be null), batch, t_len and hidden, and
+// The layout policy S (bilstm_train.cu: StackedForward; bilstm.cu:
+// PrecomputedForward) supplies the element types xw_type and u_type
+// (float or bf16: xw is widened where the cell takes it, U split into its P =
+// u_pieces<S> pieces as it is staged, so a bf16 xw crosses memory at half
+// the bytes and a bf16 U takes a third of the shared memory), xw (rows of
+// 4H), u ((2, H, 4H)), h_out and c_out (float32, c_out may be null),
+// batch, t_len and hidden, and
 //   xw_row(dir, r, step)  the row of (direction, row, step) in xw;
 //   out_at(dir, r, step)  the offset of its unit 0 in h_out and c_out.
 // Step 0 of each direction starts from h = c = 0.
@@ -74,6 +91,7 @@
 #include <cooperative_groups.h>
 
 #include <mutex>
+#include <type_traits>
 
 #include "mma_product.cuh"
 
@@ -87,27 +105,35 @@ constexpr int kSweepMaxRows = 128;   // rows per tile the launcher considers
 // the cost model of the launcher's choice, a step's time in two parts: a
 // fixed one (barriers, exchange) and one per 8-row n-tile that a warp
 // carries (its product and cells), in the ratio 1 : 2 that fits the times
-// of every geometry (tools/torch_train_fwd_sweep.py, PERF.md)
+// of every geometry (tools/torch_train_fwd_sweep.py,
+// tools/torch_precomputed_sweep.py, PERF.md), times the CTAs that share an
+// SM (they take turns at its warp schedulers and tensor cores)
 constexpr long kStepCost = 1, kTileCost = 2;
+
+// U's bf16 pieces in shared memory under policy S: one of a bf16 U, three
+// of a float32 one.
+template <class S>
+constexpr int u_pieces = std::is_same<typename S::u_type, bf16>::value ? 1 : 3;
 
 // One CTA's geometry and the carve-up of its shared memory, bytes.
 struct SweepGeometry {
     int cluster, rows;
+    int pieces;      // U's bf16 pieces held, P
     int uc;          // units per CTA, a multiple of 8
     int hk;          // the depth of h.U, C * uc (a multiple of 16)
     int item_tiles;  // 8-row n-tiles per warp item: 2 where rows allow
     int items;       // warp items a step (item i is warp i % 8's)
     int joint;       // a warp's items in one product: 2 where they share a unit group
     size_t h_off, smem;
-    __host__ __device__ SweepGeometry(int hidden, int cluster_, int rows_)
-        : cluster(cluster_), rows(rows_) {
+    __host__ __device__ SweepGeometry(int hidden, int cluster_, int rows_, int pieces_)
+        : cluster(cluster_), rows(rows_), pieces(pieces_) {
         uc = ((hidden + cluster - 1) / cluster + 7) / 8 * 8;
         hk = cluster * uc;
         item_tiles = rows % 16 == 0 ? 2 : 1;
         const int groups = uc / 8;
         items = groups * (rows / (8 * item_tiles));
         joint = items > kSweepWarps && kSweepWarps % groups == 0 ? 2 : 1;
-        h_off = size_t(3) * 4 * uc * hk * sizeof(bf16);             // U: 3 pieces, 4 uc rows
+        h_off = size_t(pieces) * 4 * uc * hk * sizeof(bf16);        // U: P pieces, 4 uc rows
         smem = h_off + size_t(2) * 3 * rows * hk * sizeof(bf16);    // h: 2 tiles of 3 pieces
     }
     __host__ __device__ bool fits() const {
@@ -133,12 +159,12 @@ __device__ __forceinline__ int swizzled(int row, int k, int hk, int mask) {
 }
 
 // acc[i] += h[rows r0[i] ..] . U[the unit group's gate columns] over the
-// depth hk for NI items of one unit group, three pieces each, in the
+// depth hk for NI items of one unit group, h in three pieces and U in P, in the
 // accumulator layout of two m16 tiles (the (i, f) and (g, o) rows of 8
 // units) per 8-row n-tile j: acc[i][j][0] = (i, i, f, f), acc[i][j][1] =
 // (g, g, o, o) of the lane's unit and rows 2 * (lane % 4) + {0, 1}. The
 // items share U's fragments.
-template <int J, int NI>
+template <int J, int NI, int P>
 __device__ __forceinline__ void carry_product(const bf16* us, const bf16* hs, const SweepGeometry& g,
                                               int mask, int grp, const int (&r0)[NI],
                                               float (&acc)[NI][J][2][4]) {
@@ -151,7 +177,7 @@ __device__ __forceinline__ void carry_product(const bf16* us, const bf16* hs, co
     int b_row[NI];
 #pragma unroll
     for (int i = 0; i < NI; ++i) b_row[i] = r0[i] + (lane & 7) + (J == 2 ? ((lane >> 4) & 1) * 8 : 0);
-    // the five smaller pairs apart from the pair (0, 0); with one item,
+    // the smaller pairs apart from the pair (0, 0); with one item,
     // alternately into two sums (mma.sync issues in program order: other
     // sums' products lie between two that add to the same one)
     constexpr int kLo = NI == 1 ? 2 : 1;
@@ -178,12 +204,12 @@ __device__ __forceinline__ void carry_product(const bf16* us, const bf16* hs, co
     };
 #pragma unroll 2
     for (int k = 0; k < g.hk; k += 16) {
-        // U's three pieces of both m16 tiles, h's of every item's n-tiles
+        // U's P pieces of both m16 tiles, h's three of every item's n-tiles
         unsigned a[3][2][4], b[3][NI][J][2];
 #pragma unroll
         for (int p = 0; p < 3; ++p) {
 #pragma unroll
-            for (int m = 0; m < 2; ++m)
+            for (int m = 0; m < 2 && p < P; ++m)
                 ldmatrix_x4(a[p][m], us + p * u_piece + swizzled(a_row + m * 16, k + a_half, g.hk, mask));
 #pragma unroll
             for (int i = 0; i < NI; ++i) {
@@ -201,11 +227,16 @@ __device__ __forceinline__ void carry_product(const bf16* us, const bf16* hs, co
             }
         }
         pass(acc, a[0], b[0]);
-        pass(lo[0], a[0], b[1]);
-        pass(lo[kLo - 1], a[1], b[0]);
-        pass(lo[0], a[0], b[2]);
-        pass(lo[kLo - 1], a[1], b[1]);
-        pass(lo[0], a[2], b[0]);
+        if constexpr (P == 3) {
+            pass(lo[0], a[0], b[1]);
+            pass(lo[kLo - 1], a[1], b[0]);
+            pass(lo[0], a[0], b[2]);
+            pass(lo[kLo - 1], a[1], b[1]);
+            pass(lo[0], a[2], b[0]);
+        } else {
+            pass(lo[0], a[0], b[1]);
+            pass(lo[kLo - 1], a[0], b[2]);
+        }
     }
 #pragma unroll
     for (int q = 0; q < kLo; ++q)
@@ -232,20 +263,21 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_sweep(const S s, const S
     const int dir = blockIdx.z;
     const int hidden = s.hidden, gates = 4 * hidden, uc = g.uc, hk = g.hk, rows = g.rows;
     const int mask = swizzle_mask(hk);
+    constexpr int P = u_pieces<S>;
     bf16* us = reinterpret_cast<bf16*>(fwd_sweep_smem);
     bf16* hbuf = reinterpret_cast<bf16*>(fwd_sweep_smem + g.h_off);
     const size_t u_piece = size_t(4) * uc * hk, h_piece = size_t(rows) * hk;
 
-    // U's columns of this CTA's units as three pieces, once for the launch
-    const float* ud = s.u + static_cast<size_t>(dir) * hidden * gates;
+    // U's columns of this CTA's units as P pieces, once for the launch
+    const typename S::u_type* ud = s.u + static_cast<size_t>(dir) * hidden * gates;
     for (int idx = threadIdx.x; idx < hk * 4 * uc; idx += kThreads) {
         const int k = idx / (4 * uc), m = idx - k * 4 * uc;
         const int gate = m / uc, ul = m - gate * uc, unit = rank * uc + ul;
         float rest = k < hidden && unit < hidden
-            ? ud[static_cast<size_t>(k) * gates + gate * hidden + unit] : 0.0f;
+            ? to_float(ud[static_cast<size_t>(k) * gates + gate * hidden + unit]) : 0.0f;
         const int at = swizzled((ul >> 3) * 32 + gate * 8 + (ul & 7), k, hk, mask);
 #pragma unroll
-        for (int p = 0; p < 3; ++p) {
+        for (int p = 0; p < P; ++p) {
             const bf16 piece = __float2bfloat16_rn(rest);
             us[p * u_piece + at] = piece;
             rest -= __bfloat162float(piece);
@@ -262,8 +294,12 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_sweep(const S s, const S
     auto unit_of = [&](int item) { return rank * uc + (item % groups) * 8 + gid; };
     auto row_of = [&](int item) { return (item / groups) * 8 * J; };
     // xw of the lane's cells (item slot, n-tile, row, gate), loaded a step
-    // ahead into registers
-    float xv[kSweepMaxItems][J][2][4];
+    // ahead into registers in its type and widened where the cell takes it
+    // (widened at the load, a bf16 value would stall the warp there until
+    // it lands)
+    using XT = typename S::xw_type;
+    const XT zero = from_float<XT>(0.0f);
+    XT xv[kSweepMaxItems][J][2][4];
     auto load_xw = [&](int row0, int step) {
 #pragma unroll
         for (int sl = 0; sl < kSweepMaxItems; ++sl) {
@@ -276,9 +312,9 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_sweep(const S s, const S
                 for (int e = 0; e < 2; ++e) {
                     const int row = row0 + row_of(item) + j * 8 + 2 * tq + e;
                     const bool real = row < s.batch && unit < hidden;
-                    const float* src = s.xw + (real ? s.xw_row(dir, row, step) * gates + unit : 0);
+                    const XT* src = s.xw + (real ? s.xw_row(dir, row, step) * gates + unit : 0);
 #pragma unroll
-                    for (int q = 0; q < 4; ++q) xv[sl][j][e][q] = real ? src[q * hidden] : 0.0f;
+                    for (int q = 0; q < 4; ++q) xv[sl][j][e][q] = real ? src[q * hidden] : zero;
                 }
         }
     };
@@ -317,7 +353,7 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_sweep(const S s, const S
 #pragma unroll
                 for (int i = 0; i < NI; ++i)
                     r0[i] = row_of(item_of(s0 + i) < g.items ? item_of(s0 + i) : item_of(s0));
-                carry_product<J, NI>(us, hs, g, mask, item_of(s0) % groups, r0, acc[s0 / NI]);
+                carry_product<J, NI, P>(us, hs, g, mask, item_of(s0) % groups, r0, acc[s0 / NI]);
             }
 
             float hv[kSweepMaxItems][J][2];
@@ -332,10 +368,10 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_sweep(const S s, const S
                     for (int e = 0; e < 2; ++e) {
                         // (x.W + b) + h.U, the plain version's order of the terms
                         const float(&hu)[2][4] = acc[sl / NI][sl % NI][j];
-                        const float a_i = xv[sl][j][e][0] + hu[0][e];
-                        const float a_f = xv[sl][j][e][1] + hu[0][2 + e];
-                        const float a_g = xv[sl][j][e][2] + hu[1][e];
-                        const float a_o = xv[sl][j][e][3] + hu[1][2 + e];
+                        const float a_i = to_float(xv[sl][j][e][0]) + hu[0][e];
+                        const float a_f = to_float(xv[sl][j][e][1]) + hu[0][2 + e];
+                        const float a_g = to_float(xv[sl][j][e][2]) + hu[1][e];
+                        const float a_o = to_float(xv[sl][j][e][3]) + hu[1][2 + e];
                         c[sl][j][e] = sigmoid_tanh(a_f) * c[sl][j][e] + sigmoid_tanh(a_i) * tanhf(a_g);
                         const float h = sigmoid_tanh(a_o) * tanhf(c[sl][j][e]);
                         hv[sl][j][e] = h;
@@ -417,7 +453,9 @@ cudaLaunchConfig_t sweep_config(int cluster, size_t smem, cudaStream_t stream,
 
 std::mutex g_sweep_mutex;
 struct SweepResident { const void* kernel; int cluster; size_t smem; int device, clusters; };
-SweepResident g_sweep_resident[64];
+// every (policy, geometry) of a library: row 3's four policies of ~20 each
+constexpr int kSweepCache = 256;
+SweepResident g_sweep_resident[kSweepCache];
 int g_sweep_cached = 0;
 
 // The kernel of a geometry's item shape.
@@ -447,7 +485,7 @@ cudaError_t sweep_resident(const SweepGeometry& g, int device, int* resident) {
     const cudaLaunchConfig_t cfg = sweep_config(g.cluster, g.smem, nullptr, &attr);
     err = cudaOccupancyMaxActiveClusters(resident, kernel, &cfg);
     if (err != cudaSuccess) return err;
-    if (g_sweep_cached < 64)
+    if (g_sweep_cached < kSweepCache)
         g_sweep_resident[g_sweep_cached++] = {key, g.cluster, g.smem, device, *resident};
     return cudaSuccess;
 }
@@ -461,14 +499,16 @@ cudaError_t sweep_resident(const SweepGeometry& g, int device, int* resident) {
 template <class S>
 cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& per_dir,
                            int* chosen) {
-    int device = 0;
+    int device = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
     if (cluster <= 0 || rows <= 0) {
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        if (err != cudaSuccess) return err;
         long best = -1;
         for (int c = 2; c <= 8; c *= 2) {
             for (int r = 8; r <= kSweepMaxRows; r += 8) {
-                const SweepGeometry g(hidden, c, r);
+                const SweepGeometry g(hidden, c, r, u_pieces<S>);
                 if (!g.fits()) continue;
                 int resident = 0;
                 err = sweep_resident<S>(g, device, &resident);
@@ -476,8 +516,10 @@ cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& 
                 if (resident < 2) continue;
                 const long tiles = (batch + r - 1) / r, clusters = resident / 2;
                 const long rounds = (tiles + clusters - 1) / clusters;
+                const long ctas = 2L * c * (tiles < clusters ? tiles : clusters);
+                const long share = (ctas + sms - 1) / sms;
                 const long per_warp = (g.items + kSweepWarps - 1) / kSweepWarps * g.item_tiles;
-                const long cost = rounds * (kTileCost * per_warp + kStepCost);
+                const long cost = rounds * share * (kTileCost * per_warp + kStepCost);
                 if (best < 0 || cost < best) {
                     best = cost;
                     cluster = c;
@@ -487,7 +529,7 @@ cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& 
         }
         if (best < 0) return cudaErrorInvalidValue;
     }
-    const SweepGeometry g(hidden, cluster, rows);
+    const SweepGeometry g(hidden, cluster, rows, u_pieces<S>);
     if (!g.fits()) return cudaErrorInvalidValue;
     int resident = 0;
     err = sweep_resident<S>(g, device, &resident);
@@ -507,7 +549,7 @@ cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& 
 // Launch the sweep of policy s at a geometry from plan_fwd_sweep.
 template <class S>
 cudaError_t launch_fwd_sweep(const S& s, int cluster, int rows, int per_dir, cudaStream_t stream) {
-    const SweepGeometry g(s.hidden, cluster, rows);
+    const SweepGeometry g(s.hidden, cluster, rows, u_pieces<S>);
     const int tiles = (s.batch + rows - 1) / rows;
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg = sweep_config(cluster, g.smem, stream, &attr);

@@ -73,29 +73,41 @@ _SMEM_LIMIT = 227 * 1024  # shared memory a block may take on Hopper
 _SWEEP_WARPS, _SWEEP_MAX_ITEMS = 8, 2
 
 
-def sweep_layout(hidden: int, cluster: int, rows: int) -> Tuple[int, int]:
+def sweep_layout(hidden: int, cluster: int, rows: int, u_pieces: int = 3) -> Tuple[int, int]:
     """(shared-memory bytes, warp items) of one CTA of the forward sweep:
-    U's three bf16 pieces for the four gates of its uc = H / C units
-    (rounded up to 8) over the depth C * uc, and two h tiles of three
-    pieces; items of 8 units by 16 rows, or 8 where the rows are no
-    multiple of 16."""
+    U's ``u_pieces`` bf16 pieces (three of a float32 U, one of a bf16 U)
+    for the four gates of its uc = H / C units (rounded up to 8) over the
+    depth C * uc, and two h tiles of three pieces; items of 8 units by 16
+    rows, or 8 where the rows are no multiple of 16."""
     uc = -(-hidden // (8 * cluster)) * 8
     hk = cluster * uc
     item_rows = 16 if rows % 16 == 0 else 8
-    smem = 2 * 3 * 4 * uc * hk + 2 * 2 * 3 * rows * hk
+    smem = 2 * u_pieces * 4 * uc * hk + 2 * 2 * 3 * rows * hk
     return smem, uc // 8 * (rows // item_rows)
 
 
-def sweep_geometries(hidden: int):
+def sweep_geometries(hidden: int, u_pieces: int = 3):
     """Every (cluster, rows) whose CTA fits: shared memory and warp items.
     Whether it launches is the card's to say (clusters it holds at once)."""
     out = []
     for cluster in SWEEP_CLUSTERS:
         for rows in SWEEP_ROWS:
-            smem, items = sweep_layout(hidden, cluster, rows)
+            smem, items = sweep_layout(hidden, cluster, rows, u_pieces)
             if smem <= _SMEM_LIMIT and items <= _SWEEP_WARPS * _SWEEP_MAX_ITEMS:
                 out.append((cluster, rows))
     return out
+
+
+def check_sweep_width(hidden: int, u_pieces: int = 3) -> None:
+    """Raise ValueError where the forward sweep cannot take H: no multiple
+    of 8, or no geometry whose CTA fits."""
+    if hidden % 8:
+        raise ValueError(f"the forward sweep takes H in multiples of 8, not H = {hidden}")
+    if not sweep_geometries(hidden, u_pieces):
+        least = sweep_layout(hidden, SWEEP_CLUSTERS[-1], 8, u_pieces)[0]
+        raise ValueError(f"hidden size {hidden}: the forward sweep's CTA needs {least} bytes "
+                         f"of shared memory even at a cluster of {SWEEP_CLUSTERS[-1]} and 8 "
+                         f"rows, above the {_SMEM_LIMIT} a block may take")
 
 
 def _check_sweep(feat: int, hidden: int, rows: int) -> None:
@@ -105,11 +117,7 @@ def _check_sweep(feat: int, hidden: int, rows: int) -> None:
         # the product stages 16-byte chunks of xs rows; the sweep of xw rows
         raise ValueError(f"the forward kernels take F and H in multiples of 8, not "
                          f"F = {feat}, H = {hidden}")
-    if not sweep_geometries(hidden):
-        least = sweep_layout(hidden, SWEEP_CLUSTERS[-1], 8)[0]
-        raise ValueError(f"hidden size {hidden}: the forward sweep's CTA needs {least} bytes "
-                         f"of shared memory even at a cluster of {SWEEP_CLUSTERS[-1]} and 8 "
-                         f"rows, above the {_SMEM_LIMIT} a block may take")
+    check_sweep_width(hidden)
     if -(-rows // _ROW_TILE) > _MAX_GRID_Y:
         raise ValueError(f"T*B = {rows} rows exceed the forward product's grid")
 

@@ -13,8 +13,12 @@ chip_smoke.py's kernel line (CUDA events, mean of 5 calls after a warm-up,
 through each tree's own wrappers): the two backwards (B = 10,000, both
 layers, dx for lstm2 only), row 6 in float32 and row 2 in bfloat16 and
 float32; the resident forward (row 5, float32, both layers) at B = 10,000
-and at B = 512; bilstm2 (row 4, float32) and the streaming forward (row 1,
-bfloat16, both layers) at B = 512.
+and at B = 512; bilstm2 (row 4, float32), the streaming forward (row 1,
+bfloat16, both layers) and the recurrence on precomputed projections (row
+3, both layers in the bf16 calling default's dtype pairs: lstm1 xw and U
+bf16, lstm2 xw float32 and U bf16) at B = 512; and the model's calling
+forward on examples/ont_production.ckpt at B = 512 in bfloat16, streaming
+and under use_pallas_bilstm.
 Prints each run's ms and the card's name and power limit. Needs a CUDA card.
 """
 
@@ -41,14 +45,19 @@ print(json.dumps({d: chip_smoke.train_step_times(params, torch.device("cuda"), d
 KERNELS = """
 import json, numpy as np, torch
 import chip_smoke as cs
+from clair_tpu_torch.ops.bilstm import bilstm_recurrence
 from clair_tpu_torch.ops.bilstm2 import bilstm2
 from clair_tpu_torch.ops.bilstm_stream import _forward, _stack_params, bilstm_stream_backward
 from clair_tpu_torch.ops.bilstm_train import bilstm_train_backward, bilstm_train_forward
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 ms = {"row 6 float32": 0.0, "row 2 bfloat16": 0.0, "row 2 float32": 0.0,
-      "row 5 float32": 0.0, "row 5 float32 B=512": 0.0, "row 1 bfloat16 B=512": 0.0}
+      "row 5 float32": 0.0, "row 5 float32 B=512": 0.0, "row 1 bfloat16 B=512": 0.0,
+      "row 3 bfloat16 B=512": 0.0}
 for feat in (32, 256):
+    p_dtype, x_dtype = cs.PRECOMPUTED_DTYPES[1 if feat == 32 else 2]
+    xw, u16 = cs.precomputed_inputs((512, 33, feat, 128), dev, p_dtype, x_dtype, feat + 6)
+    ms["row 3 bfloat16 B=512"] += cs.cuda_ms(lambda: bilstm_recurrence(xw, u16))
     for batch, key in ((10000, "row 5 float32"), (512, "row 5 float32 B=512")):
         xs, w, u, b, _ = cs.stacked_inputs((batch, 33, feat, 128), dev, feat + 5)
         ms[key] += cs.cuda_ms(lambda: bilstm_train_forward(xs, w, u, b), 5 if batch > 512 else 20)
@@ -76,6 +85,16 @@ p1, p2 = cs.lstm_params(rs, 32, 128, dev), cs.lstm_params(rs, 256, 128, dev)
 x = torch.tensor(rs.randn(512, 33, 32), dtype=torch.float32, device=dev)
 with torch.no_grad():
     ms["row 4 float32 B=512"] = cs.cuda_ms(lambda: bilstm2(p1, p2, x))
+from clair_tpu_torch.models.checkpoint import load_checkpoint
+from clair_tpu_torch.models.clair import ClairNet
+from clair_tpu_torch.params import ModelConfig
+from clair_tpu_torch.pipeline.call_var import _device_input
+params, _ = load_checkpoint("examples/ont_production.ckpt")
+xu = torch.from_numpy(np.random.RandomState(8).randint(0, 40, (512, 33, 8, 4)).astype(np.uint8)).to(dev)
+for name, flags in (("streaming", {}), ("use_pallas_bilstm", {"use_pallas_bilstm": True})):
+    model = ClairNet.from_jax(params, ModelConfig(compute_dtype="bfloat16", **flags), dev)
+    with torch.inference_mode():
+        ms[f"forward bfloat16 B=512 {name}"] = cs.cuda_ms(lambda: model(_device_input(xu)))
 print(json.dumps(ms))
 """
 
@@ -95,7 +114,7 @@ def main():
     parser.add_argument("--train_pair", action="store_true",
                         help="the step under use_pallas_train_bilstm (float32)")
     parser.add_argument("--kernels", action="store_true",
-                        help="also time rows 1, 2, 4, 5 and 6 at the kernel line's shapes")
+                        help="also time rows 1 to 6 at the kernel line's shapes")
     args = parser.parse_args()
     dtypes, flags = args.dtypes, {}
     if args.train_pair:
