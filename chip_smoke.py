@@ -37,12 +37,24 @@ Phases, each printing its results and seconds:
    7b. ``call_bam.call_bam`` with ``Predictor(params, ModelConfig(
        use_pallas_bilstm=True, compute_dtype=d))`` on the same genome, in
        bfloat16 and float32; the float32 decisions equal phase 7's
+   7c. ``python -m clair_tpu_torch call_bam_parallel --run --process_pool``
+       over the genome's three 10 kb windows with two worker processes (each
+       builds its Predictor on the card), then with one: every joblog line
+       ok, the same VCF rows from both, recall and precision at the floors
 8. the training path: ``python -m clair_tpu_torch train`` at batch 10,000 on
    a bin of 24,000 learnable rows written by the port, in the default
    bfloat16 and in float32; finite losses that fall, checkpoints that load,
    the evaluation report, and both kernels' launch counts in each run
    8b. ``train_model`` under ``use_pallas_train_bilstm``, float32, on the
        same bin: the same checks, only the train pair launching
+   8c. phase 7's BAM and a truth VCF of its planted variants through the
+       port's CLI alone, one process a command: get_truth, extract_candidates
+       --gen4Training, create_tensor (candidates, truth sites),
+       pair_with_non_variants, tensor2bin over each half of the contig,
+       combine_bins, train (full width, two epochs), call_bam with the new
+       checkpoint; the bin holds every paired line and every planted variant
+       with a non-reference genotype, finite losses, checkpoints that load,
+       only the streaming pair launching in train, a well-formed VCF
 9. times (CUDA events after warm-up) beside the card's name and power limit;
    the model's calling forward at B = 512 in both dtypes, streaming and
    under use_pallas_bilstm
@@ -54,9 +66,10 @@ Phases, each printing its results and seconds:
        work) and the time of the one PyTorch call that computes the same
        function, where there is one (torch.nn.LSTM, cuDNN, TF32 off)
 
-Each run of phases 7, 7b, 8 and 8b runs in a process of its own, so the
-launch counts it reports start from 0 just before it and are read just
-after it; 9c sets bilstm2's count to 0 just before its call. Any failed
+Each run of phases 7, 7b, 7c, 8, 8b and 8c runs in a process of its own,
+so the launch counts it reports start from 0 just before it and are read
+just after it (7c's two-worker run launches in its worker processes, which
+report none); 9c sets bilstm2's count to 0 just before its call. Any failed
 phase raises, so the script exits non-zero without the last line. The last
 two lines are a JSON summary of the kernels and the device line
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX or the JAX
@@ -138,6 +151,9 @@ BWD_REL_TOL, BF16_COSINE, BF16_REL_TOL = 3e-4, 0.99, 1e-2
 FORWARD_TOL = 1e-4          # probabilities, card vs CPU, float32
 STEP_RTOL = 3e-4            # train-step losses, card vs CPU, float32
 RECALL_FLOOR = PRECISION_FLOOR = 0.9
+# the simulated ONT genome of phases 7 to 8c, and phase 7c's windows on it
+GENOME_LENGTH, POOL_CHUNK = 30_000, 10_000
+POOL_WINDOWS = GENOME_LENGTH // POOL_CHUNK
 TRAIN_ROWS, TRAIN_EPOCHS = 24_000, 2
 # row 2 run twice and compared bit for bit at the training shape of lstm2
 BITWISE_GEOMETRY = (10000, 33, 256, 128)
@@ -704,11 +720,13 @@ def check_train_step(params, pair=STREAM_PAIR, **flags):
 
 
 def simulate_genome(workdir: Path):
+    """The ONT genome of phases 7 to 8c: FASTA, BAM, {position: (ref, alt)}
+    and the planted variants."""
     from clair_tpu_torch.utils import simulate
 
     recipe = simulate.PLATFORM_RECIPES["ont"]
     rs = np.random.RandomState(424242)
-    reference = simulate.random_reference(rs, 30_000)
+    reference = simulate.random_reference(rs, GENOME_LENGTH)
     variants = simulate.plant_variants(rs, reference, n_variants=120, spacing=200)
     fasta, bam = str(workdir / "ref.fa"), str(workdir / "reads.bam")
     simulate.write_fasta(fasta, reference)
@@ -716,20 +734,26 @@ def simulate_genome(workdir: Path):
                           read_length=recipe["read_length"],
                           read_length_sigma=recipe["read_length_sigma"],
                           error_profile=getattr(simulate, recipe["profile_name"]))
-    return fasta, bam, {v.position: (v.ref, v.alt) for v in variants}
+    return fasta, bam, {v.position: (v.ref, v.alt) for v in variants}, variants
 
 
-def run_process(args, timeout):
-    """``python <args>`` in a process of its own; its kernel launch counts
-    start from 0 there and are reported on its last stderr line."""
+def run_command(args, timeout):
+    """``python <args>`` in a process of its own: (wall seconds, stderr)."""
     cmd = [sys.executable, *args]
     started = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - started
     if proc.returncode != 0:
-        raise RuntimeError(f"{' '.join(cmd[:3])} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    report = json.loads(proc.stderr.strip().splitlines()[-1])
-    return report, wall, proc.stderr
+        raise RuntimeError(f"{' '.join(cmd[:4])} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return wall, proc.stderr
+
+
+def run_process(args, timeout):
+    """``python <args>`` in a process of its own; its kernel launch counts
+    start from 0 there and are reported on its last stderr line."""
+    wall, stderr = run_command(args, timeout)
+    report = json.loads(stderr.strip().splitlines()[-1])
+    return report, wall, stderr
 
 
 def run_port(args, timeout):
@@ -766,6 +790,129 @@ def score(rows, truth):
 def decisions(rows):
     """(CHROM, POS, REF, ALT, GT) of each VCF row."""
     return [(r[0], r[1], r[3], r[4], r[9].split(":")[0]) for r in rows]
+
+
+def process_pool(fasta, bam, truth, tmp: Path, card):
+    """Phase 7c: ``call_bam_parallel --run --process_pool`` over the genome's
+    POOL_WINDOWS windows with two worker processes (each builds its own
+    Predictor on the card), then with one (in the command's process). Every
+    joblog line ok, the same VCF rows from both, recall and precision at the
+    floors."""
+    rows_of = {}
+    for workers in (2, 1):
+        prefix = str(tmp / f"pool_{workers}")
+        report, wall, _ = run_port(
+            ["call_bam_parallel", "--run", "--process_pool", "--bam_fn", bam, "--ref_fn", fasta,
+             "--chkpnt_fn", str(ROOT / "examples" / "ont_synthetic.ckpt"),
+             "--output_prefix", prefix, "--refChunkSize", str(POOL_CHUNK), "--threshold", "0.2",
+             "--workers", str(workers)], 600)
+        log = [json.loads(line) for line in open(prefix + ".joblog")]
+        assert [e["status"] for e in log] == ["ok"] * POOL_WINDOWS, \
+            f"--workers {workers}: windows not all ok: {log}"
+        rows = [r.split("\t") for r in open(prefix + ".vcf") if not r.startswith("#")]
+        recall, precision = score(rows, truth)
+        launches = report["kernel_launches"]
+        elapsed = ", ".join(f"{e['elapsed']:.2f}" for e in log)
+        print(f"  call_bam_parallel --process_pool --workers {workers}: {len(log)} windows ok "
+              f"({elapsed} s each), {len(rows)} calls, "
+              f"recall {recall:.4f}, precision {precision:.4f}, the command process's kernel "
+              f"launches {launches}, wall {wall:.2f} s (process start to exit) on {card}")
+        assert recall >= RECALL_FLOOR and precision >= PRECISION_FLOOR, (recall, precision)
+        # with one worker the command's own process calls every window
+        assert workers > 1 or launches["bilstm_stream"] > 0, launches
+        rows_of[workers] = rows
+    assert rows_of[2] == rows_of[1], "the VCF rows of --workers 2 and --workers 1 differ"
+    print("  --workers 2 and --workers 1 VCF rows identical")
+
+
+def training_data_path(fasta, bam, variants, tmp: Path, card):
+    """Phase 8c: BAM + truth VCF -> bin -> full-width model -> VCF, each step
+    a command of the port's CLI in a process of its own. No accuracy floor:
+    two epochs on a few hundred rows show the path, not a caller."""
+    from clair_tpu_torch import cli
+    from clair_tpu_torch.data.bins import load_bin
+    from clair_tpu_torch.models.checkpoint import checkpoint_path, load_checkpoint
+    from clair_tpu_torch.task.labels import GENOTYPE_SPAN
+    from clair_tpu_torch.utils.simulate import write_truth_vcf
+
+    scan = cli._native_region_scan(bam, fasta, "chr1", 1, GENOME_LENGTH, 0)
+    assert scan is not None, "the native counts pass does not engage on the genome's BAM"
+    scan.close()
+    p = {k: str(tmp / k) for k in ("truth.vcf", "var", "can", "t_can", "t_var", "paired",
+                                   "half_1", "half_2", "half_1.bin", "half_2.bin", "all.bin",
+                                   "model", "calls.vcf")}
+    write_truth_vcf(p["truth.vcf"], variants)
+    walls = {}
+
+    def host(name, args):
+        walls[name], _ = run_command(["-m", "clair_tpu_torch", *args], 300)
+
+    host("get_truth", ["get_truth", "--vcf_fn", p["truth.vcf"], "--ctgName", "chr1",
+                       "--var_fn", p["var"]])
+    host("extract_candidates", ["extract_candidates", "--bam_fn", bam, "--ref_fn", fasta,
+                                "--ctgName", "chr1", "--gen4Training", "--var_fn", p["var"],
+                                "--can_fn", p["can"]])
+    for which, sites in (("t_can", "can"), ("t_var", "var")):
+        host(f"create_tensor {sites}", ["create_tensor", "--bam_fn", bam, "--ref_fn", fasta,
+                                        "--ctgName", "chr1", "--can_fn", p[sites],
+                                        "--tensor_fn", p[which]])
+    host("pair_with_non_variants", ["pair_with_non_variants", "--tensor_can_fn", p["t_can"],
+                                    "--tensor_var_fn", p["t_var"], "--output_fn", p["paired"]])
+    paired = open(p["paired"]).read().splitlines()
+    half = GENOME_LENGTH // 2
+    for name, keep in (("half_1", lambda pos: pos <= half), ("half_2", lambda pos: pos > half)):
+        with open(p[name], "w") as fh:
+            fh.writelines(r + "\n" for r in paired if keep(int(r.split(maxsplit=2)[1])))
+        host(f"tensor2bin {name}", ["tensor2bin", "--tensor_fn", p[name], "--var_fn", p["var"],
+                                    "--bin_fn", p[f"{name}.bin"]])
+    host("combine_bins", ["combine_bins", p["half_1.bin"], p["half_2.bin"],
+                          "--output_fn", p["all.bin"]])
+
+    dataset = load_bin(p["all.bin"])
+    assert dataset.dataset_size == len(paired), (dataset.dataset_size, len(paired))
+    keys = [str(k) for i in range(dataset.n_blocks) for k in dataset.pos_block(i)]
+    labels = np.concatenate([dataset.y_block(i) for i in range(dataset.n_blocks)])
+    row = {k: i for i, k in enumerate(keys)}
+    missing = [v.position for v in variants if f"chr1:{v.position}" not in row]
+    assert not missing, f"planted variants not in the bin: {missing}"
+    homref = [v.position for v in variants if labels[row[f"chr1:{v.position}"], GENOTYPE_SPAN[0]]]
+    assert not homref, f"planted variants labelled 0/0: {homref}"
+    print(f"  bin: {dataset.dataset_size} rows (= paired tensor lines), "
+          f"{len(open(p['t_var']).read().splitlines())} truth tensors, every planted "
+          f"variant with a non-reference genotype label")
+
+    report, walls["train"], stderr = run_port(
+        ["train", "--bin_fn", p["all.bin"], "--ochk_prefix", p["model"],
+         "--maxEpoch", str(TRAIN_EPOCHS)], 600)
+    losses = [v for v, _ in report["training_losses"] + report["validation_losses"]]
+    assert len(report["training_losses"]) == TRAIN_EPOCHS and all(map(math.isfinite, losses)), \
+        report
+    for epoch in range(1, TRAIN_EPOCHS + 1):
+        params, extra = load_checkpoint(checkpoint_path(p["model"], epoch))
+        assert extra["epoch"] == epoch and params["l3"]["w"].shape == (256, 33, 30)
+    launches = report["kernel_launches"]
+    assert all((launches[k] > 0) == (k in STREAM_PAIR) for k in KERNELS), launches
+    epochs = [line for line in stderr.splitlines() if "Epoch time elapsed" in line]
+    print(f"  train at full width, batch {TRAIN_BATCH}: loss sums {report['training_losses']} "
+          f"(training), {report['validation_losses']} (validation), kernel launches "
+          f"{launches}; {epochs}")
+
+    report, walls["call_bam"], _ = run_port(
+        ["call_bam", "--bam_fn", bam, "--ref_fn", fasta,
+         "--chkpnt_fn", checkpoint_path(p["model"], TRAIN_EPOCHS), "--ctgName", "chr1",
+         "--threshold", "0.2", "--call_fn", p["calls.vcf"]], 500)
+    lines = open(p["calls.vcf"]).read().splitlines()
+    header = [r for r in lines if r.startswith("#CHROM")]
+    rows = [r.split("\t") for r in lines if not r.startswith("#")]
+    assert lines[0].startswith("##fileformat=VCF") and len(header) == 1, lines[:3]
+    assert all(len(r) == 10 and r[0] == "chr1" for r in rows), rows[:3]
+    positions = [int(r[1]) for r in rows]
+    assert positions == sorted(positions) and all(1 <= x <= GENOME_LENGTH for x in positions)
+    assert report["kernel_launches"]["bilstm_stream"] > 0, report
+    print(f"  call_bam with the epoch-{TRAIN_EPOCHS} checkpoint: {len(rows)} rows, kernel "
+          f"launches {report['kernel_launches']}")
+    print(f"  walls (process start to exit) on {card}: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
 
 
 def write_training_bin(path: Path):
@@ -1261,13 +1408,15 @@ def main():
 
     t = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        fasta, bam, truth = simulate_genome(Path(tmp))
-        print(f"  simulated 30 kb ONT genome, {len(truth)} planted variants: "
+    # the genome of phases 7 to 8c
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as genome_dir:
+        tmp = Path(genome_dir)
+        fasta, bam, truth, variants = simulate_genome(tmp)
+        print(f"  simulated {GENOME_LENGTH // 1000} kb ONT genome, {len(truth)} planted variants: "
               f"{time.perf_counter() - t:.2f} s")
         runs = {}
         for dtype, flags in (("bfloat16", []), ("float32", ["--dtype", "float32"])):
-            rows, launches, wall, sites = call_bam(fasta, bam, str(Path(tmp) / f"{dtype}.vcf"), flags)
+            rows, launches, wall, sites = call_bam(fasta, bam, str(tmp / f"{dtype}.vcf"), flags)
             recall, precision = score(rows, truth)
             print(f"  call_bam {dtype}: {len(rows)} calls, recall {recall:.4f}, precision "
                   f"{precision:.4f}, kernel launches {launches}, wall {wall:.2f} s; {sites}")
@@ -1283,7 +1432,7 @@ def main():
         precomputed_runs = {}
         for dtype in ("bfloat16", "float32"):
             rows, launches, wall, sites = call_bam_precomputed(
-                fasta, bam, str(Path(tmp) / f"precomputed_{dtype}.vcf"), dtype)
+                fasta, bam, str(tmp / f"precomputed_{dtype}.vcf"), dtype)
             recall, precision = score(rows, truth)
             print(f"  call_bam use_pallas_bilstm {dtype}: {len(rows)} calls, recall "
                   f"{recall:.4f}, precision {precision:.4f}, kernel launches {launches}, "
@@ -1291,42 +1440,53 @@ def main():
             assert recall >= RECALL_FLOOR and precision >= PRECISION_FLOOR, (recall, precision)
             assert launches["bilstm_precomputed"] > 0 and launches["bilstm_stream"] == 0, launches
             precomputed_runs[dtype] = (rows, launches, wall, sites)
-    streaming = decisions(runs["float32"][0])
-    assert decisions(precomputed_runs["float32"][0]) == streaming, \
-        "use_pallas_bilstm f32 decisions differ from the streaming f32 run"
-    print("  use_pallas_bilstm float32 decisions identical to the streaming float32 run")
-    differ = sorted(set(decisions(precomputed_runs["bfloat16"][0])) ^ set(streaming))
-    print(f"  use_pallas_bilstm bfloat16 vs streaming float32: {len(differ)} decisions "
-          f"differ {differ}")
-    phase("7b calling path, use_pallas_bilstm", t)
-
-    t = time.perf_counter()
-    trains = {}
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        bin_fn = Path(tmp) / "train.bin"
-        write_training_bin(bin_fn)
-        for dtype, flags in (("bfloat16", []), ("float32", ["--train_compute_dtype", "float32"])):
-            prefix = Path(tmp) / f"model_{dtype}"
-            report, wall, top, epochs = train(prefix, lambda: run_port(
-                ["train", "--bin_fn", str(bin_fn), "--ochk_prefix", str(prefix),
-                 "--maxEpoch", str(TRAIN_EPOCHS), *flags], 600))
-            print(f"  train {dtype}: validation loss sums {report['validation_losses']}, "
-                  f"training loss sums {report['training_losses']}, best epoch "
-                  f"{report['best_epoch']}, kernel launches {report['kernel_launches']}, "
-                  f"wall {wall:.2f} s (process start to exit); {top}; {epochs}")
-            trains[dtype] = (report, wall)
-        phase("8 training path", t)
+        streaming = decisions(runs["float32"][0])
+        assert decisions(precomputed_runs["float32"][0]) == streaming, \
+            "use_pallas_bilstm f32 decisions differ from the streaming f32 run"
+        print("  use_pallas_bilstm float32 decisions identical to the streaming float32 run")
+        differ = sorted(set(decisions(precomputed_runs["bfloat16"][0])) ^ set(streaming))
+        print(f"  use_pallas_bilstm bfloat16 vs streaming float32: {len(differ)} decisions "
+              f"differ {differ}")
+        phase("7b calling path, use_pallas_bilstm", t)
 
         t = time.perf_counter()
-        prefix = Path(tmp) / "model_train_pair"
-        report, wall, top, epochs = train(prefix, lambda: run_process(
-            ["-c", TRAIN_SCRIPT, str(bin_fn), str(prefix), str(TRAIN_EPOCHS)], 600), TRAIN_PAIR)
-        print(f"  train_model use_pallas_train_bilstm float32: validation loss sums "
-              f"{report['validation_losses']}, training loss sums {report['training_losses']}, "
-              f"best epoch {report['best_epoch']}, kernel launches {report['kernel_launches']}, "
-              f"wall {wall:.2f} s (process start to exit); {top}; {epochs}")
-        trains["float32, use_pallas_train_bilstm"] = (report, wall)
-    phase("8b training path, use_pallas_train_bilstm", t)
+        process_pool(fasta, bam, truth, tmp, card)
+        phase("7c call_bam_parallel --process_pool", t)
+
+        t = time.perf_counter()
+        trains = {}
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as bin_dir:
+            bin_fn = Path(bin_dir) / "train.bin"
+            write_training_bin(bin_fn)
+            for dtype, flags in (("bfloat16", []), ("float32", ["--train_compute_dtype", "float32"])):
+                prefix = Path(bin_dir) / f"model_{dtype}"
+                report, wall, top, epochs = train(prefix, lambda: run_port(
+                    ["train", "--bin_fn", str(bin_fn), "--ochk_prefix", str(prefix),
+                     "--maxEpoch", str(TRAIN_EPOCHS), *flags], 600))
+                print(f"  train {dtype}: validation loss sums {report['validation_losses']}, "
+                      f"training loss sums {report['training_losses']}, best epoch "
+                      f"{report['best_epoch']}, kernel launches {report['kernel_launches']}, "
+                      f"wall {wall:.2f} s (process start to exit); {top}; {epochs}")
+                trains[dtype] = (report, wall)
+            phase("8 training path", t)
+
+            t = time.perf_counter()
+            prefix = Path(bin_dir) / "model_train_pair"
+            report, wall, top, epochs = train(prefix, lambda: run_process(
+                ["-c", TRAIN_SCRIPT, str(bin_fn), str(prefix), str(TRAIN_EPOCHS)], 600),
+                TRAIN_PAIR)
+            print(f"  train_model use_pallas_train_bilstm float32: validation loss sums "
+                  f"{report['validation_losses']}, training loss sums "
+                  f"{report['training_losses']}, best epoch {report['best_epoch']}, kernel "
+                  f"launches {report['kernel_launches']}, wall {wall:.2f} s (process start to "
+                  f"exit); {top}; {epochs}")
+            trains["float32, use_pallas_train_bilstm"] = (report, wall)
+        phase("8b training path, use_pallas_train_bilstm", t)
+
+        t = time.perf_counter()
+        (tmp / "chain").mkdir()
+        training_data_path(fasta, bam, variants, tmp / "chain", card)
+        phase("8c BAM + truth VCF -> bin -> model -> VCF, the port's CLI", t)
 
     t = time.perf_counter()
     from clair_tpu_torch.models.bilstm import bilstm_with_cell

@@ -221,6 +221,21 @@ def load_train_val_bins(train_path: str, validation_path: str) -> BinDataset:
     )
 
 
+def combine_bins(paths: List[str], output_path: str) -> BinDataset:
+    """Merge bins (the reference's CombineBins.py); a reference blosc bin is
+    refused by load_bin."""
+    datasets = [load_bin(p) for p in paths]
+    merged = BinDataset(
+        dataset_size=sum(d.dataset_size for d in datasets),
+        x_blocks=[b for d in datasets for b in d.x_blocks],
+        y_blocks=[b for d in datasets for b in d.y_blocks],
+        pos_blocks=[b for d in datasets for b in d.pos_blocks],
+        block_size=datasets[0].block_size,
+    )
+    write_bin(output_path, merged)
+    return merged
+
+
 def variant_map_from(var_fn: Optional[str], bed: BedIntervals) -> dict:
     """Truth-label map keyed 'ctg:pos' from GetTruth-format lines."""
     y = {}

@@ -18,7 +18,7 @@ from clair_tpu_torch.models.clair import ClairNet
 from clair_tpu_torch.models.losses import total_loss
 
 _MESH_TODO = ("a mesh (multi-GPU data or model parallelism) is not ported yet "
-              "(ROADMAP Queue 1 item 6)")
+              "(ROADMAP Queue 1, 'Multi-GPU')")
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:

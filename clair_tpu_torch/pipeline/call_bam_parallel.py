@@ -218,9 +218,10 @@ def genome_windows(
 
 
 def _run_window(args_tuple):
-    """Worker entry: build a predictor in-process and call one window.
-    Exceptions come back as data so one bad window can't sink the pool."""
-    base_config, checkpoint_path, window, output_prefix = args_tuple
+    """Worker entry: build a predictor in-process, on the torch device the
+    work carries, and call one window. Exceptions come back as data so one
+    bad window can't sink the pool."""
+    base_config, checkpoint_path, window, output_prefix, device = args_tuple
     contig, start, end = window
     path = f"{output_prefix}.{contig}_{start}_{end}.vcf"
     started = time.perf_counter()
@@ -231,7 +232,7 @@ def _run_window(args_tuple):
 
         params, _ = load_checkpoint(checkpoint_path)
         predictor = Predictor(
-            params, ModelConfig(compute_dtype=PREDICT_COMPUTE_DTYPE)
+            params, ModelConfig(compute_dtype=PREDICT_COMPUTE_DTYPE), device=device
         )
         config = dataclasses.replace(
             base_config, contig=contig, ctg_start=start, ctg_end=end
@@ -257,14 +258,15 @@ def call_bam_parallel(
     joblog_path: Optional[str] = None,
     num_shards: int = 1,
     shard_id: int = 0,
+    device: str = "cuda",
 ) -> List[str]:
     """Run call_bam over every genome window; returns the per-window VCF
     paths (merge with merge_vcfs).
 
     With max_workers > 1 (requires checkpoint_path), window pileups run on
-    a process pool — each worker has its own predictor, keeping the device
-    saturated while host pileups proceed in parallel (the reference's
-    GNU-parallel share-nothing model, in-process).
+    a process pool — each worker has its own predictor on ``device``,
+    keeping the device saturated while host pileups proceed in parallel
+    (the reference's GNU-parallel share-nothing model, in-process).
 
     Every window's outcome lands in a JobLog next to the outputs; a failed
     window is recorded and skipped (the run continues), and resume=True
@@ -306,7 +308,7 @@ def call_bam_parallel(
         context = multiprocessing.get_context("spawn")
         with context.Pool(max_workers) as pool:
             work = [
-                (base_config, checkpoint_path, window, output_prefix)
+                (base_config, checkpoint_path, window, output_prefix, device)
                 for window in windows
             ]
             for path, window, sites, error, elapsed in pool.imap(_run_window, work):

@@ -92,7 +92,7 @@ class TrainingConfig:
     # its third learning-rate switch
     hard_max_epochs: Optional[int] = None
     checkpoint_every: int = 1
-    # not ported: multi-GPU training (ROADMAP Queue 1 item 6)
+    # not ported: multi-GPU training (ROADMAP Queue 1, 'Multi-GPU')
     mesh: Optional[object] = None
     seed: int = 0
     evaluate_at_end: bool = True
@@ -156,7 +156,7 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 def _check_supported(config: TrainingConfig, device: torch.device) -> None:
     if config.mesh is not None:
         raise NotImplementedError(
-            "mesh: multi-GPU training is not ported yet (ROADMAP Queue 1 item 6)")
+            "mesh: multi-GPU training is not ported yet (ROADMAP Queue 1, 'Multi-GPU')")
     model = config.model
     if (device.type == "cuda" and config.use_stream_bilstm is False
             and not (model.use_pallas_bilstm or model.use_pallas_stream_bilstm

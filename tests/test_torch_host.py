@@ -31,6 +31,9 @@ COPIED = {
     "pipeline.schedules": set(), "pipeline.decode": set(), "pipeline.batch_decode": set(),
     "pipeline.gvcf": set(), "pipeline.work_queue": set(), "pipeline.call_bam": set(),
     "pipeline.call_bam_parallel": set(),
+    "data.pairing": set(), "data.transform": set(), "post": set(), "post.overlap_variant": set(),
+    "post.ensemble": set(), "post.gvcf_merge": set(), "io.sam": set(), "io.tfckpt": set(),
+    "models.audit": set(), "models.convert_tf1": set(), "plot_tensor": set(),
 }
 # QUAL = (10*log10(p / (1 - p)) + 16)^2: float32 does not resolve it above
 # 3000 (tests/test_torch_predictor.py)

@@ -221,7 +221,6 @@ PARALLEL_ARGS = ["call_bam_parallel", "--bam_fn", "x.bam", "--ref_fn", "x.fa",
 
 @pytest.mark.parametrize("argv,match", [
     (["call_var", "--activation_only"], "activation_only"),
-    (PARALLEL_ARGS + ["--process_pool", "--run"], "process_pool"),
     (PARALLEL_ARGS + ["--run", "--num_devices", "2"], "num_devices"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match):
