@@ -55,6 +55,26 @@ Phases, each printing its results and seconds:
        checkpoint; the bin holds every paired line and every planted variant
        with a non-reference genotype, finite losses, checkpoints that load,
        only the streaming pair launching in train, a well-formed VCF
+10. the commands that need the model, and more than one device, on the card
+   (run after 8c, on phase 7's genome and phase 8's bin):
+   10a. forward_activations of examples/ont_production.ckpt at B = 512 on
+        the card (row 1, float32) against the plain version on the CPU,
+        name by name; ``call_var --activation_only`` through the CLI: the
+        npz files, row 1 launching twice a batch
+   10b. ``learning_rate_finder`` through the CLI on phase 8's bin at batch
+        10,000: rising learning rates, finite losses, the two suggested
+        lines, only rows 1 and 2 launching
+   10c. ``train --profile_dir`` on phase 8's bin (one epoch): the trace holds
+        rows 1 and 2 by name; each train step's device time split by kernel
+        and by the rest (tools/torch_trace_split.py)
+   10d. data-parallel training (DistributedDataParallel under make_mesh) on
+        the one card, dropout off, on phase 8's bin: world size 1 on NCCL
+        against the unwrapped train_model (the same losses), and two ranks
+        on cuda:0 with gloo against one process (losses within rtol 1e-3),
+        the ranks' launches summed
+   10e. call_bam through ShardedPredictor(devices=["cuda:0", "cuda:0"]): the
+        rows of phase 7's bfloat16 run; ``call_bam --num_devices 2`` on a
+        one-card machine raises
 9. times (CUDA events after warm-up) beside the card's name and power limit;
    the model's calling forward at B = 512 in both dtypes, streaming and
    under use_pallas_bilstm
@@ -66,10 +86,11 @@ Phases, each printing its results and seconds:
        work) and the time of the one PyTorch call that computes the same
        function, where there is one (torch.nn.LSTM, cuDNN, TF32 off)
 
-Each run of phases 7, 7b, 7c, 8, 8b and 8c runs in a process of its own,
-so the launch counts it reports start from 0 just before it and are read
-just after it (7c's two-worker run launches in its worker processes, which
-report none); 9c sets bilstm2's count to 0 just before its call. Any failed
+Each run of phases 7, 7b, 7c, 8, 8b, 8c and 10a-10e runs in a process of
+its own, so the launch counts it reports start from 0 just before it and
+are read just after it; the processes a run spawns (7c's pool workers,
+10d's ranks) return their counts, which the run adds to its own. 9c sets
+bilstm2's count to 0 just before its call. Any failed
 phase raises, so the script exits non-zero without the last line. The last
 two lines are a JSON summary of the kernels and the device line
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX or the JAX
@@ -182,7 +203,7 @@ LAYERS = (("lstm1", 32), ("lstm2", 256))
 # calling under use_pallas_bilstm, in a process of its own (phase 7b)
 CALL_SCRIPT = """
 import json, sys
-from clair_tpu_torch.cli import _kernel_counts
+from clair_tpu_torch.ops import launch_counts
 from clair_tpu_torch.models.checkpoint import load_checkpoint
 from clair_tpu_torch.params import ModelConfig
 from clair_tpu_torch.pipeline.call_bam import CallBamConfig, call_bam
@@ -194,12 +215,12 @@ config = CallBamConfig(bam_path=bam, fasta_path=fasta, contig="chr1", minimum_af
 predictor = Predictor(params, ModelConfig(use_pallas_bilstm=True, compute_dtype=dtype))
 total = call_bam(config, predictor, output_path=out)
 print(f"[INFO] {total} candidate sites processed", file=sys.stderr)
-print(json.dumps({"kernel_launches": _kernel_counts()}), file=sys.stderr)
+print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
 """
 # training under use_pallas_train_bilstm, in a process of its own (phase 8b)
 TRAIN_SCRIPT = """
 import json, logging, sys
-from clair_tpu_torch.cli import _kernel_counts
+from clair_tpu_torch.ops import launch_counts
 from clair_tpu_torch.data.bins import load_bin
 from clair_tpu_torch.params import ModelConfig
 from clair_tpu_torch.pipeline.train import TrainingConfig, train_model
@@ -208,11 +229,63 @@ bin_fn, prefix, epochs = sys.argv[1], sys.argv[2], int(sys.argv[3])
 result = train_model(load_bin(bin_fn), TrainingConfig(
     model=ModelConfig(use_pallas_train_bilstm=True), train_compute_dtype="float32",
     output_prefix=prefix, max_epochs=epochs, hard_max_epochs=epochs))
-print(json.dumps({"kernel_launches": _kernel_counts(),
+print(json.dumps({"kernel_launches": launch_counts(),
                   "training_losses": result.training_losses,
                   "validation_losses": result.validation_losses,
                   "best_epoch": result.best_epoch}), file=sys.stderr)
 """
+# phase 10d: data-parallel training on the one card, in a process of its own
+# (it spawns the ranks): the unwrapped run, world size 1 on NCCL, two ranks
+# on cuda:0 with gloo
+DDP_SCRIPT = """
+import dataclasses, functools, json, logging, sys, time
+from clair_tpu_torch.data.bins import load_bin
+from clair_tpu_torch.ops import launch_counts, launches_since
+from clair_tpu_torch.params import ModelConfig
+from clair_tpu_torch.pipeline.train import TrainingConfig, train_model, train_on_devices
+logging.basicConfig(format="%(message)s", level=logging.INFO)
+bin_fn, epochs = sys.argv[1], int(sys.argv[2])
+model = dataclasses.replace(ModelConfig(), lstm2_dropout_rate=0.0, l4_dropout_rate=0.0,
+                            l5_dropout_rate=0.0)
+config = TrainingConfig(model=model, schedule="fixed", max_epochs=epochs,
+                        evaluate_at_end=False, device="cuda")
+load = functools.partial(load_bin, bin_fn)
+runs = {}
+before, started = launch_counts(), time.perf_counter()
+single = train_model(load(), config)
+runs["single"] = (single, launches_since(before), time.perf_counter() - started)
+started = time.perf_counter()
+runs["nccl_1"] = (*train_on_devices(load, config, 1, timeout_s=600),
+                  time.perf_counter() - started)
+started = time.perf_counter()
+runs["gloo_2"] = (*train_on_devices(load, config, 2, backend="gloo",
+                                    devices=["cuda:0", "cuda:0"], timeout_s=600),
+                  time.perf_counter() - started)
+print(json.dumps({k: {"training_losses": r.training_losses,
+                      "validation_losses": r.validation_losses,
+                      "best_epoch": r.best_epoch, "kernel_launches": launches, "wall": wall}
+                  for k, (r, launches, wall) in runs.items()}), file=sys.stderr)
+"""
+# phase 10e: call_bam through two Predictors on the one card
+SHARDED_SCRIPT = """
+import json, sys
+from clair_tpu_torch.ops import launch_counts
+from clair_tpu_torch.models.checkpoint import load_checkpoint
+from clair_tpu_torch.params import ModelConfig
+from clair_tpu_torch.pipeline.call_bam import CallBamConfig, call_bam
+from clair_tpu_torch.pipeline.call_var import ShardedPredictor
+bam, fasta, ckpt, out = sys.argv[1:]
+params, _ = load_checkpoint(ckpt)
+# phase 7's call_bam flags and its bfloat16 default
+config = CallBamConfig(bam_path=bam, fasta_path=fasta, contig="chr1", minimum_af=0.2)
+predictor = ShardedPredictor(params, ModelConfig(compute_dtype="bfloat16"),
+                             devices=["cuda:0", "cuda:0"])
+total = call_bam(config, predictor, output_path=out)
+print(f"[INFO] {total} candidate sites processed", file=sys.stderr)
+print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
+"""
+# the train step split from 10c's trace (tools/torch_trace_split.py)
+DDP_RTOL = 1e-3
 
 
 def card_line() -> str:
@@ -240,13 +313,15 @@ def cuda_ms(fn, iters=20) -> float:
 
 
 def kernel_counts():
-    from clair_tpu_torch.cli import _kernel_counts
+    from clair_tpu_torch.ops import launch_counts
 
-    return _kernel_counts()
+    return launch_counts()
 
 
 def launched_since(before):
-    return {k: v - before[k] for k, v in kernel_counts().items()}
+    from clair_tpu_torch.ops import launches_since
+
+    return launches_since(before)
 
 
 def lstm_params(rs, feat, hidden, device):
@@ -815,14 +890,17 @@ def process_pool(fasta, bam, truth, tmp: Path, card):
         elapsed = ", ".join(f"{e['elapsed']:.2f}" for e in log)
         print(f"  call_bam_parallel --process_pool --workers {workers}: {len(log)} windows ok "
               f"({elapsed} s each), {len(rows)} calls, "
-              f"recall {recall:.4f}, precision {precision:.4f}, the command process's kernel "
-              f"launches {launches}, wall {wall:.2f} s (process start to exit) on {card}")
+              f"recall {recall:.4f}, precision {precision:.4f}, kernel launches {launches} "
+              f"(the command's and its workers'), wall {wall:.2f} s (process start to exit) "
+              f"on {card}")
         assert recall >= RECALL_FLOOR and precision >= PRECISION_FLOOR, (recall, precision)
-        # with one worker the command's own process calls every window
-        assert workers > 1 or launches["bilstm_stream"] > 0, launches
-        rows_of[workers] = rows
-    assert rows_of[2] == rows_of[1], "the VCF rows of --workers 2 and --workers 1 differ"
-    print("  --workers 2 and --workers 1 VCF rows identical")
+        # the workers' launches come back with their windows
+        assert launches["bilstm_stream"] > 0, launches
+        rows_of[workers] = (rows, launches)
+    assert rows_of[2][0] == rows_of[1][0], "the VCF rows of --workers 2 and --workers 1 differ"
+    # the same windows, so the same batches
+    assert rows_of[2][1] == rows_of[1][1], "--workers 2 and --workers 1 launch counts differ"
+    print("  --workers 2 and --workers 1 VCF rows and kernel launches identical")
 
 
 def training_data_path(fasta, bam, variants, tmp: Path, card):
@@ -913,6 +991,162 @@ def training_data_path(fasta, bam, variants, tmp: Path, card):
           f"launches {report['kernel_launches']}")
     print(f"  walls (process start to exit) on {card}: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+
+
+def activations(params, dev, tmp: Path, card):
+    """Phase 10a: forward_activations on the card (row 1, float32) against
+    the plain version on the CPU, name by name within FORWARD_TOL of each
+    array's largest magnitude (at least 1); then ``call_var
+    --activation_only`` through the CLI on 70 sites (two batches of 64)."""
+    from clair_tpu_torch.data.tensor_stream import tensor_line_from
+    from clair_tpu_torch.models.clair import forward_activations
+    from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
+
+    x = torch.from_numpy(np.random.RandomState(15).randint(0, 40, (CALL_BATCH, 33, 8, 4))
+                         .astype(np.float32))
+    before = bilstm_stream.launches
+    card_acts = forward_activations(params, x.to(dev))
+    assert bilstm_stream.launches == before + 2, "forward_activations did not run row 1 twice"
+    plain = forward_activations(params, x)
+    errs = {}
+    for name, want in plain.items():
+        scale = max(1.0, want.abs().max().item())
+        errs[name] = (card_acts[name].cpu() - want).abs().max().item() / scale
+        assert card_acts[name].dtype == torch.float32 and errs[name] <= FORWARD_TOL, \
+            (name, errs[name])
+    print(f"  forward_activations B={CALL_BATCH} card vs CPU, max|d| / max(1, max|ref|) per "
+          f"name: {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+    rs = np.random.RandomState(16)
+    tensors, out = tmp / "act_tensors.txt", tmp / "activations"
+    with open(tensors, "w") as fh:
+        for i in range(70):
+            fh.write(tensor_line_from("chr1", 100 + i, "".join(rs.choice(list("ACGT"), 33)),
+                                      rs.randint(0, 30, (33, 8, 4))) + "\n")
+    report, wall, _ = run_port(
+        ["call_var", "--activation_only", "--tensor_fn", str(tensors),
+         "--chkpnt_fn", str(ROOT / "examples" / "ont_production.ckpt"), "--max_plot", "70",
+         "--log_path", str(out)], 300)
+    files = sorted(out.glob("*.npz"))
+    launches = report["kernel_launches"]
+    assert len(files) == 70, len(files)
+    assert launches == {k: (4 if k == "bilstm_stream" else 0) for k in launches}, launches
+    dump = np.load(files[0])
+    assert sorted(dump.files) == sorted(plain) and all(np.isfinite(dump[k]).all() for k in dump)
+    print(f"  call_var --activation_only: {len(files)} npz files of {len(dump.files)} arrays, "
+          f"kernel launches {launches}, wall {wall:.2f} s (process start to exit) on {card}")
+    return launches
+
+
+def lr_finder(bin_fn: Path, tmp: Path, card):
+    """Phase 10b: ``learning_rate_finder`` through the CLI on phase 8's bin
+    at its default batch (10,000): rising learning rates, finite losses, the
+    two suggested lines; only rows 1 and 2, four forwards (two for the
+    step, two for its accuracy) and two backwards a step."""
+    out = tmp / "lr_finder.txt"
+    report, wall, _ = run_port(["learning_rate_finder", "--bin_fn", str(bin_fn),
+                                "--olog_fn", str(out)], 300)
+    lines = out.read_text().splitlines()
+    rows = [tuple(map(float, line.split(","))) for line in lines[1:-2]]
+    lrs, losses = [r[0] for r in rows], [r[2] for r in rows]
+    assert lines[0] == "lr,accuracy,loss" and len(rows) == math.ceil(int(TRAIN_ROWS * 0.9) / 10_000)
+    assert lrs == sorted(lrs) and len(set(lrs)) == len(lrs), lrs
+    assert all(map(math.isfinite, losses)), losses
+    assert lines[-2].startswith("# suggested min_lr ") and lines[-1].startswith(
+        "# suggested max_lr "), lines[-2:]
+    launches = report["kernel_launches"]
+    assert launches == {k: {"bilstm_stream": 4 * len(rows),
+                            "bilstm_stream_backward": 2 * len(rows)}.get(k, 0)
+                        for k in launches}, launches
+    print(f"  learning_rate_finder: {len(rows)} steps, lr {lrs}, accuracy "
+          f"{[r[1] for r in rows]}, loss {losses}; {lines[-2]}; {lines[-1]}; kernel launches "
+          f"{launches}, wall {wall:.2f} s (process start to exit) on {card}")
+    return launches
+
+
+def profiled_train(bin_fn: Path, tmp: Path, card):
+    """Phase 10c: ``train --profile_dir`` on phase 8's bin, one epoch: a
+    trace whose CUDA kernels include rows 1 and 2 by name, and the train
+    step's device time from it, by kernel and by the rest."""
+    sys.path.insert(0, str(ROOT))
+    from tools.torch_trace_split import KERNEL_ROWS, split_train_steps
+
+    trace_dir = tmp / "trace"
+    report, wall, _ = run_port(["train", "--bin_fn", str(bin_fn), "--maxEpoch", "1",
+                                "--profile_dir", str(trace_dir)], 600)
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1, traces
+    kernels = {e["name"] for e in json.loads(traces[0].read_text())["traceEvents"]
+               if e.get("cat") == "kernel"}
+    for row, marks in KERNEL_ROWS:
+        assert any(m in k for k in kernels for m in marks), (row, sorted(kernels)[:30])
+    split = split_train_steps(str(traces[0]))
+    launches = report["kernel_launches"]
+    assert all((launches[k] > 0) == (k in STREAM_PAIR) for k in KERNELS), launches
+    print(f"  train --profile_dir (bf16, B={TRAIN_BATCH}, one epoch): trace "
+          f"{traces[0].name} ({traces[0].stat().st_size / 1e6:.1f} MB), kernel launches "
+          f"{launches}, wall {wall:.2f} s (process start to exit) on {card}")
+    print(f"  the train steps from the trace on {card} (device time of the kernels each "
+          f"step launched; the epoch's batches are 10,000, 10,000 and 1,600 rows):")
+    for i, step in enumerate(split["per_step"]):
+        print(f"    step {i + 1}: {sum(step.values()):.4f} ms: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in step.items()))
+    print("    mean over the steps, by kernel:")
+    for name, ms in list(split["kernels_ms_per_step"].items())[:12]:
+        print(f"    {ms:.4f} ms  {name[:110]}")
+    return launches, split
+
+
+def data_parallel(bin_fn: Path, card):
+    """Phase 10d: DDP on the one card, dropout off, on phase 8's bin: world
+    size 1 on NCCL gives the unwrapped run's losses; two ranks on cuda:0
+    with gloo (NCCL refuses two ranks on one device) give one process's
+    within DDP_RTOL; the ranks' launch counts come back summed."""
+    report, wall, _ = run_process(["-c", DDP_SCRIPT, str(bin_fn), str(TRAIN_EPOCHS)], 900)
+    single, nccl, gloo = report["single"], report["nccl_1"], report["gloo_2"]
+    for name, run in report.items():
+        print(f"  {name}: training loss sums {run['training_losses']}, validation "
+              f"{run['validation_losses']}, best epoch {run['best_epoch']}, kernel launches "
+              f"{run['kernel_launches']}, wall {run['wall']:.2f} s")
+    for key in ("training_losses", "validation_losses"):
+        assert nccl[key] == single[key], (key, nccl[key], single[key])
+        got, want = [v for v, _ in gloo[key]], [v for v, _ in single[key]]
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        print(f"  two gloo ranks vs one process, {key}: max rel diff {rel:.3e}")
+        assert rel <= DDP_RTOL, (key, got, want)
+    assert nccl["best_epoch"] == single["best_epoch"] == gloo["best_epoch"]
+    for run in (nccl, gloo):
+        assert all((run["kernel_launches"][k] > 0) == (k in STREAM_PAIR) for k in KERNELS), run
+    # two ranks each launch what one process does: the same steps, a stripe each
+    assert nccl["kernel_launches"] == single["kernel_launches"]
+    assert gloo["kernel_launches"] == {k: 2 * v for k, v in single["kernel_launches"].items()}
+    print(f"  world size 1 (NCCL) losses equal the unwrapped run's; wall {wall:.2f} s "
+          f"(process start to exit) on {card}")
+    return gloo["kernel_launches"]
+
+
+def sharded_calling(fasta, bam, tmp: Path, phase7_rows, card):
+    """Phase 10e: call_bam through ShardedPredictor on cuda:0 twice: phase
+    7's bfloat16 rows; then ``call_bam --num_devices N`` with N one more
+    than the visible cards raises, naming the flag."""
+    out = str(tmp / "sharded.vcf")
+    rows, launches, wall, sites = calls_of(out, *run_process(
+        ["-c", SHARDED_SCRIPT, bam, fasta, str(ROOT / "examples" / "ont_synthetic.ckpt"), out],
+        500))
+    assert rows == phase7_rows, "ShardedPredictor's rows differ from phase 7's bfloat16 rows"
+    assert launches["bilstm_stream"] > 0, launches
+    print(f"  call_bam, ShardedPredictor on cuda:0 x 2: {len(rows)} rows identical to phase "
+          f"7's bfloat16 run, kernel launches {launches}, wall {wall:.2f} s; {sites}")
+    n = torch.cuda.device_count() + 1
+    proc = subprocess.run(
+        [sys.executable, "-m", "clair_tpu_torch", "call_bam", "--bam_fn", bam, "--ref_fn", fasta,
+         "--chkpnt_fn", str(ROOT / "examples" / "ont_synthetic.ckpt"), "--ctgName", "chr1",
+         "--num_devices", str(n), "--call_fn", str(tmp / "refused.vcf")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    want = f"--num_devices {n} needs {n} CUDA devices"
+    assert proc.returncode != 0 and want in proc.stderr, (proc.returncode, proc.stderr[-2000:])
+    print(f"  call_bam --num_devices {n} on {torch.cuda.device_count()} card(s): exit "
+          f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1]}")
+    return launches
 
 
 def write_training_bin(path: Path):
@@ -1481,12 +1715,33 @@ def main():
                   f"launches {report['kernel_launches']}, wall {wall:.2f} s (process start to "
                   f"exit); {top}; {epochs}")
             trains["float32, use_pallas_train_bilstm"] = (report, wall)
-        phase("8b training path, use_pallas_train_bilstm", t)
+            phase("8b training path, use_pallas_train_bilstm", t)
 
-        t = time.perf_counter()
-        (tmp / "chain").mkdir()
-        training_data_path(fasta, bam, variants, tmp / "chain", card)
-        phase("8c BAM + truth VCF -> bin -> model -> VCF, the port's CLI", t)
+            t = time.perf_counter()
+            (tmp / "chain").mkdir()
+            training_data_path(fasta, bam, variants, tmp / "chain", card)
+            phase("8c BAM + truth VCF -> bin -> model -> VCF, the port's CLI", t)
+
+            t = time.perf_counter()
+            new_paths = {"activations": activations(params, dev, tmp, card)}
+            phase("10a forward_activations and call_var --activation_only", t)
+
+            t = time.perf_counter()
+            new_paths["learning_rate_finder"] = lr_finder(bin_fn, tmp, card)
+            phase("10b learning_rate_finder", t)
+
+            t = time.perf_counter()
+            new_paths["train --profile_dir"], step_split = profiled_train(bin_fn, tmp, card)
+            phase("10c train --profile_dir", t)
+
+            t = time.perf_counter()
+            new_paths["DDP, two gloo ranks"] = data_parallel(bin_fn, card)
+            phase("10d data-parallel training on one card", t)
+
+            t = time.perf_counter()
+            new_paths["ShardedPredictor"] = sharded_calling(fasta, bam, tmp,
+                                                            runs["bfloat16"][0], card)
+            phase("10e call_bam through ShardedPredictor", t)
 
     t = time.perf_counter()
     from clair_tpu_torch.models.bilstm import bilstm_with_cell
@@ -1584,6 +1839,8 @@ def main():
     phase("9d bounds and library calls", t)
 
     assert "jax" not in sys.modules
+    print(f"launches on the phase-10 paths (each run's, rows 1 and 2 only): "
+          f"{json.dumps({k: {r: v[r] for r in STREAM_PAIR} for k, v in new_paths.items()})}")
     print(f"card: {card}")
     # each kernel's launches in the run of the path that carries it
     launches = {**{k: trains["bfloat16"][0]["kernel_launches"][k] for k in STREAM_PAIR},

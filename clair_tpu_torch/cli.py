@@ -3,15 +3,24 @@
 The calling commands (``call_var``, ``call_bam``, ``call_bam_parallel``)
 are the JAX package's own parsers and runners (clair_tpu/cli.py), copied
 here over the port's host side, with the port's CUDA ``Predictor`` built by
-``_predictor_from``. ``call_bam_parallel`` without ``--run`` prints its
-command sheet of ``python -m clair_tpu_torch call_bam`` lines; with
-``--process_pool`` each worker process builds its own predictor.
+``_predictor_from`` (``--num_devices N``: a ``ShardedPredictor``, one
+Predictor on each of N cards). ``call_bam_parallel`` without ``--run``
+prints its command sheet of ``python -m clair_tpu_torch call_bam`` lines;
+with ``--process_pool`` each worker process builds its own predictor.
+``call_var --activation_only`` writes each site's layer activations
+(``models/clair.py: forward_activations``) instead of calling.
 
-The training commands (``train``, ``train_clr``, ``evaluate``) take the JAX
-package's flags but run the port's own loop (``pipeline/train.py``) on one
-CUDA device; the flags of what is not ported yet (multi-GPU, profiling,
-activation dumps) raise NotImplementedError, as does
-``--no_stream_bilstm``, whose lax.scan BiLSTM the port keeps off the card.
+The training commands (``train``, ``train_clr``, ``evaluate``,
+``learning_rate_finder``) take the JAX package's flags but run the port's
+own loop (``pipeline/train.py``, ``pipeline/lr_finder.py``) on CUDA.
+``train --num_devices N`` spawns one process per card on this host;
+across hosts every process runs ``train`` with ``--coordinator_address``,
+``--num_processes`` and its own ``--process_id`` (one process per GPU, not
+per host as in the JAX CLI). ``train --profile_dir`` writes a
+torch.profiler trace. ``--model_parallel > 1`` raises NotImplementedError,
+as does ``--no_stream_bilstm``, whose lax.scan BiLSTM the port keeps off
+the card. ``variables`` prints a checkpoint's parameters and needs no
+device.
 
 The host commands need no model: the training-data chain
 (``get_truth``, ``extract_candidates``, ``create_tensor``,
@@ -23,7 +32,8 @@ tools (``index_vcf``, ``bam2cram``, ``view``/``sam2bam``, ``cram2bam``),
 port's copies of its modules, and write the same bytes.
 
 After a calling or training command, one JSON line on stderr reports how
-many times each kernel of the port launched during it; after a training
+many times each kernel of the port launched during it, in its own process
+and in the processes it spawned (pool workers, ranks); after a training
 command it also carries the per-epoch (loss sum, epoch) pairs and the best
 epoch."""
 
@@ -32,34 +42,38 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import logging
 import sys
 
-# the ROADMAP items the refusals below name, by title
-_MULTI_GPU = "'Multi-GPU'"
-_MODEL_COMMANDS = "'The commands that need the model in torch'"
-
 
 def _predictor_from(checkpoint_path, batch_size=None, dtype=None,
-                    num_devices=None):
-    """The port's counterpart of clair_tpu.cli._predictor_from: one CUDA
-    device; the compute dtype defaults to PREDICT_COMPUTE_DTYPE (bfloat16)
-    as in the JAX CLI."""
+                    num_devices=None, device="cuda"):
+    """The port's counterpart of clair_tpu.cli._predictor_from: a Predictor
+    on ``device`` (the command line's: CUDA); num_devices > 1 splits each
+    batch over that many devices (ShardedPredictor: one Predictor on each
+    card, cuda:0 .. cuda:N-1; N times ``device`` when it is the CPU), which
+    rounds the batch up to a multiple of N, as the JAX CLI does. Fewer
+    visible cards than N raise. The compute dtype defaults to PREDICT_COMPUTE_DTYPE
+    (bfloat16) as in the JAX CLI."""
     from clair_tpu_torch.models.checkpoint import load_checkpoint
     from clair_tpu_torch.params import (
         PREDICT_BATCH_SIZE, PREDICT_COMPUTE_DTYPE, ModelConfig,
     )
-    from clair_tpu_torch.pipeline.call_var import Predictor
+    from clair_tpu_torch.pipeline.call_var import Predictor, ShardedPredictor
 
+    devices = None
     if num_devices and num_devices > 1:
-        raise NotImplementedError(
-            "--num_devices > 1: multi-GPU calling is not ported yet "
-            f"(ROADMAP Queue 1, {_MULTI_GPU})"
-        )
+        from clair_tpu_torch.parallel.mesh import visible_devices
+
+        devices = visible_devices(num_devices, "cpu" if device == "cpu" else "cuda")
     params, _ = load_checkpoint(checkpoint_path)
     config = ModelConfig(compute_dtype=dtype or PREDICT_COMPUTE_DTYPE)
-    return Predictor(params, config, batch_size or PREDICT_BATCH_SIZE)
+    batch = batch_size or PREDICT_BATCH_SIZE
+    if devices is not None:
+        return ShardedPredictor(params, config, batch, devices=devices)
+    return Predictor(params, config, batch, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +101,7 @@ def _apply_common_runtime_flags(args):
         _cv.DECODE_THREADS = threads
 
 
-def _call_var(argv):
+def _call_var(argv, device="cuda"):
     parser = argparse.ArgumentParser(
         prog="call_var", description="Call variants from pileup tensors"
     )
@@ -125,10 +139,12 @@ def _call_var(argv):
     parser.add_argument("--max_plot", type=int, default=10)
     args = parser.parse_args(argv)
 
-    _apply_common_runtime_flags(args)
     if args.activation_only:
-        raise NotImplementedError("--activation_only (forward_activations) is not ported "
-                                  f"yet (ROADMAP Queue 1, {_MODEL_COMMANDS})")
+        # --log_path names the dump's directory here, not a log file (the
+        # JAX command opens it as both, and fails where no logging is set)
+        _dump_activations(args, device)
+        return
+    _apply_common_runtime_flags(args)
 
     from clair_tpu_torch.io.vcf import VcfWriter, contigs_from_fai
     from clair_tpu_torch.pipeline.call_var import (
@@ -171,12 +187,12 @@ def _call_var(argv):
         call_variants_from_probabilities(sys.stdin, output_config, writer, indel_sources)
     elif args.output_for_ensemble:
         predictor = _predictor_from(args.chkpnt_fn, dtype=args.dtype,
-                                    num_devices=args.num_devices)
+                                    num_devices=args.num_devices, device=device)
         call_variants_for_ensemble(args.tensor_fn, predictor, output_fh)
     else:
         writer.write_header()
         predictor = _predictor_from(args.chkpnt_fn, dtype=args.dtype,
-                                    num_devices=args.num_devices)
+                                    num_devices=args.num_devices, device=device)
         call_variants(
             args.tensor_fn, predictor, output_config, writer, indel_sources,
             debug_fh=output_fh if args.debug else None,
@@ -189,7 +205,7 @@ def _call_var(argv):
             build_tbi(args.call_fn)
 
 
-def _call_bam(argv):
+def _call_bam(argv, device="cuda"):
     parser = argparse.ArgumentParser(
         prog="call_bam", description="Call variants from a BAM for one region"
     )
@@ -274,13 +290,13 @@ def _call_bam(argv):
     )
     total = call_bam(
         config, _predictor_from(args.chkpnt_fn, dtype=args.dtype,
-                                num_devices=args.num_devices),
+                                num_devices=args.num_devices, device=device),
         output_path=args.call_fn,
     )
     print(f"[INFO] {total} candidate sites processed", file=sys.stderr)
 
 
-def _call_bam_parallel(argv, pool_device="cuda"):
+def _call_bam_parallel(argv, device="cuda", worker_launches=None):
     parser = argparse.ArgumentParser(
         prog="call_bam_parallel",
         description="Emit per-window call_bam commands (or run them inline)",
@@ -429,7 +445,7 @@ def _call_bam_parallel(argv, pool_device="cuda"):
             return
         total = run_worker(
             queue, base, _predictor_from(args.chkpnt_fn, dtype=args.dtype,
-                                         num_devices=args.num_devices),
+                                         num_devices=args.num_devices, device=device),
             reclaim_stale_s=args.reclaim_stale,
             wait_for_stragglers=args.wait,
         )
@@ -449,7 +465,7 @@ def _call_bam_parallel(argv, pool_device="cuda"):
         from clair_tpu_torch.pipeline.call_bam_parallel import call_bam_parallel, merge_vcfs
 
         paths = call_bam_parallel(
-            base, lambda: _predictor_from(args.chkpnt_fn, dtype=args.dtype),
+            base, lambda: _predictor_from(args.chkpnt_fn, dtype=args.dtype, device=device),
             args.output_prefix,
             chunk_size=args.refChunkSize,
             include_all_contigs=args.includingAllContigs,
@@ -459,13 +475,14 @@ def _call_bam_parallel(argv, pool_device="cuda"):
             joblog_path=args.joblog,
             num_shards=args.num_shards,
             shard_id=args.shard_id,
-            device=pool_device,
+            device=device,
+            worker_launches=worker_launches,
         )
         merge_vcfs(paths, args.output_prefix + ".vcf")
     else:
         call_bam_windows_threaded(
             base, _predictor_from(args.chkpnt_fn, dtype=args.dtype,
-                                  num_devices=args.num_devices),
+                                  num_devices=args.num_devices, device=device),
             args.output_prefix + ".vcf",
             chunk_size=args.refChunkSize,
             include_all_contigs=args.includingAllContigs,
@@ -477,22 +494,61 @@ def _call_bam_parallel(argv, pool_device="cuda"):
         )
 
 
-def cmd_call_var(argv):
+def _dump_activations(args, device):
+    """--activation_only mode: each site's named layer activations
+    (forward_activations, in float32 on row 1's kernel) as one
+    ``{ctg}_{pos}.npz`` in --log_path (default ``activations``), up to
+    --max_plot sites; batches of 64 (the reference plotted them to
+    TensorBoard, ref call_var.py:1239-1273)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from clair_tpu_torch.data.tensor_stream import tensor_batches_from
+    from clair_tpu_torch.models.checkpoint import load_checkpoint
+    from clair_tpu_torch.models.clair import ClairNet, forward_activations
+    from clair_tpu_torch.params import ModelConfig
+
+    if device != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError("call_var --activation_only runs on a CUDA device and "
+                           "torch.cuda.is_available() is false")
+    params, _ = load_checkpoint(args.chkpnt_fn)
+    model = ClairNet.from_jax(params, ModelConfig(), device)
+    out_dir = args.log_path or "activations"
+    os.makedirs(out_dir, exist_ok=True)
+    dumped = 0
+    for x, infos in tensor_batches_from(args.tensor_fn, batch_size=64):
+        acts = forward_activations(model, torch.from_numpy(x).to(device))
+        acts = {k: v.cpu().numpy() for k, v in acts.items()}
+        for i, (ctg, pos, _) in enumerate(infos):
+            if dumped >= args.max_plot >= 0:
+                return
+            np.savez_compressed(
+                os.path.join(out_dir, f"{ctg}_{pos}.npz"),
+                **{k: v[i] for k, v in acts.items()},
+            )
+            dumped += 1
+
+
+def cmd_call_var(argv, device="cuda"):
+    """``device``: the command line's is CUDA; an in-process caller may ask
+    for the CPU (as for every command below that takes it)."""
     with _reporting_launches({}):
-        _call_var(argv)
+        _call_var(argv, device)
 
 
-def cmd_call_bam(argv):
+def cmd_call_bam(argv, device="cuda"):
     with _reporting_launches({}):
-        _call_bam(argv)
+        _call_bam(argv, device)
 
 
-def cmd_call_bam_parallel(argv, pool_device="cuda"):
-    """``pool_device``: where each --process_pool worker process builds its
-    Predictor (the command line's: CUDA); an in-process caller may ask for
-    the CPU."""
-    with _reporting_launches({}):
-        _call_bam_parallel(argv, pool_device)
+def cmd_call_bam_parallel(argv, device="cuda"):
+    """``device``: where the predictor runs, and where each --process_pool
+    worker process builds its own; the workers' kernel launches come back
+    with their windows and join the command's JSON line."""
+    with _reporting_launches({}) as spawned:
+        _call_bam_parallel(argv, device, spawned)
 
 
 # ---------------------------------------------------------------------------
@@ -508,26 +564,18 @@ def _add_dataset_args(parser):
     parser.add_argument("--bed_fn", default=None)
 
 
-def _kernel_counts():
-    """Each kernel wrapper of the port and its launches so far."""
-    from clair_tpu_torch.ops.bilstm import bilstm_precomputed
-    from clair_tpu_torch.ops.bilstm2 import bilstm2
-    from clair_tpu_torch.ops.bilstm_stream import bilstm_stream, bilstm_stream_backward
-    from clair_tpu_torch.ops.bilstm_train import bilstm_train, bilstm_train_backward
-
-    wrappers = (bilstm_stream, bilstm_stream_backward, bilstm_train, bilstm_train_backward,
-                bilstm_precomputed, bilstm2)
-    return {fn.__name__: fn.launches for fn in wrappers}
-
-
 @contextlib.contextmanager
 def _reporting_launches(report):
     """Print one JSON line on stderr after the command: each kernel's
-    launches during it, and what the command put in ``report``."""
-    before = _kernel_counts()
-    yield
-    after = _kernel_counts()
-    launches = {k: after[k] - before[k] for k in after}
+    launches during it, and what the command put in ``report``. Yields a
+    dict to which the command adds the launches of the processes it
+    spawned (by kernel), which join this process's own."""
+    from clair_tpu_torch.ops import launch_counts, launches_since
+
+    before = launch_counts()
+    spawned = {}
+    yield spawned
+    launches = {k: v + spawned.get(k, 0) for k, v in launches_since(before).items()}
     print(json.dumps({"kernel_launches": launches, **report}), file=sys.stderr)
 
 
@@ -542,19 +590,12 @@ def _load_dataset(args):
 
 
 def _refuse_unported_training_flags(args):
-    refused = (
-        (args.num_devices is not None and args.num_devices > 1,
-         "--num_devices > 1: multi-GPU training", _MULTI_GPU),
-        (args.coordinator_address is not None,
-         "--coordinator_address: multi-host training", _MULTI_GPU),
-        (args.model_parallel > 1, "--model_parallel > 1: the sharded dense trunk",
-         _MULTI_GPU),
-        (args.profile_dir is not None, "--profile_dir: a profiler trace of training",
-         _MODEL_COMMANDS),
-    )
-    for given, what, item in refused:
-        if given:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
+    if args.model_parallel > 1:
+        from clair_tpu_torch.parallel.mesh import MODEL_PARALLEL_ITEM
+
+        raise NotImplementedError(
+            f"--model_parallel {args.model_parallel}: the model-axis split of the dense trunk "
+            f"is not ported (ROADMAP Queue 1, {MODEL_PARALLEL_ITEM})")
     if args.no_stream_bilstm:
         # the command line builds a bare ModelConfig, so the JAX flag falls
         # back to the lax.scan BiLSTM there
@@ -567,8 +608,9 @@ def _refuse_unported_training_flags(args):
 
 def cmd_train(argv, schedule="adaptive", device="cuda"):
     """The JAX package's ``train`` (and, with schedule "clr",
-    ``train_clr``) on one device (the command line's is CUDA), with the same
-    flags."""
+    ``train_clr``), with the same flags, on ``device`` (the command line's
+    is CUDA): one process, or one process per device with --num_devices
+    (spawned here) or --coordinator_address (started on each host)."""
     parser = argparse.ArgumentParser(prog="train", description="Train the model")
     _add_dataset_args(parser)
     parser.add_argument("--chkpnt_fn", default=None)
@@ -581,15 +623,28 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
     parser.add_argument("--focal_loss", action="store_true")
     parser.add_argument("--clr_mode", default="tri", choices=["tri", "tri2", "exp"])
     parser.add_argument("--maxEpoch", type=int, default=None)
-    parser.add_argument("--num_devices", type=int, default=None)
-    parser.add_argument("--model_parallel", type=int, default=1)
-    parser.add_argument("--coordinator_address", default=None)
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="data-parallel training over this many GPUs of this host: "
+                             "one process per GPU, spawned by this command (NCCL)")
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="not ported: only 1")
+    parser.add_argument("--coordinator_address", default=None,
+                        help="multi-host training: host:port of process 0; run the SAME "
+                             "command once per GPU on every host, each with its own "
+                             "--process_id (one process per GPU, where the JAX CLI takes "
+                             "one per host); it takes cuda:<process_id mod the host's GPUs>")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="with --coordinator_address: the number of processes (GPUs) "
+                             "over all hosts")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="with --coordinator_address: this process's rank")
     parser.add_argument("--decompress_workers", type=int, default=None,
                         help="bin-block decompression threads for the epoch "
                              "feed (default: one per spare core, up to 4)")
-    parser.add_argument("--profile_dir", default=None)
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of the run (CPU and CUDA) into "
+                             "this directory, one *.pt.trace.json per process (TensorBoard's "
+                             "profiler plugin and chrome://tracing read it)")
     parser.add_argument("--train_compute_dtype", default=None,
                         choices=["float32", "bfloat16"],
                         help="matmul/activation dtype for the train step "
@@ -599,14 +654,24 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
     args = parser.parse_args(argv)
     _refuse_unported_training_flags(args)
     logging.basicConfig(format="%(message)s", level=logging.INFO)
-    if args.num_processes is not None or args.process_id is not None:
+    if args.coordinator_address:
+        if args.num_processes is None or args.process_id is None:
+            parser.error("--coordinator_address needs --num_processes and --process_id")
+        if args.num_devices is not None and args.num_devices != args.num_processes:
+            parser.error("with --coordinator_address each process takes one GPU: "
+                         "--num_devices must be absent or equal to --num_processes")
+    elif args.num_processes is not None or args.process_id is not None:
+        # a process launched without the coordinator would silently train a
+        # full independent run while its peers wait
         parser.error("--num_processes/--process_id require --coordinator_address")
 
     from clair_tpu_torch.params import (
         CLR_MAX_LR, INITIAL_LEARNING_RATE, L2_REGULARIZATION_LAMBDA, MAX_EPOCH,
         ModelConfig,
     )
-    from clair_tpu_torch.pipeline.train import TrainingConfig, train_model
+    from clair_tpu_torch.ops import add_launches
+    from clair_tpu_torch.pipeline import train
+    from clair_tpu_torch.pipeline.train import TrainingConfig
 
     optimizer = "SGDM" if args.SGDM else ("Adam" if args.Adam else None)
     loss = "CrossEntropy" if args.cross_entropy else ("FocalLoss" if args.focal_loss else None)
@@ -629,10 +694,21 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
         **({"train_compute_dtype": args.train_compute_dtype}
            if args.train_compute_dtype else {}),
     )
-    dataset = _load_dataset(args)
+    load_dataset = functools.partial(_load_dataset, args)
     report = {}
-    with _reporting_launches(report):
-        result = train_model(dataset, config)
+    with _reporting_launches(report) as spawned:
+        if args.coordinator_address:
+            result, _ = train.train_rank(args.process_id, args.num_processes,
+                                         args.coordinator_address, load_dataset, config,
+                                         args.profile_dir)
+        elif args.num_devices and args.num_devices > 1:
+            result, rank_launches = train.train_on_devices(load_dataset, config,
+                                                           args.num_devices,
+                                                           profile_dir=args.profile_dir)
+            add_launches(spawned, rank_launches)
+        else:
+            with train.profiled(args.profile_dir, config.device):
+                result = train.train_model(load_dataset(), config)
         report.update(training_losses=result.training_losses,
                       validation_losses=result.validation_losses,
                       best_epoch=result.best_epoch)
@@ -656,6 +732,56 @@ def cmd_evaluate(argv, device="cuda"):
     params, _ = load_checkpoint(args.chkpnt_fn)
     with _reporting_launches({}):
         evaluate_model(params, ModelConfig(), _load_dataset(args), device=device)
+
+
+def cmd_learning_rate_finder(argv, device="cuda"):
+    parser = argparse.ArgumentParser(prog="learning_rate_finder")
+    _add_dataset_args(parser)
+    parser.add_argument("--olog_fn", default="lr_finder.txt")
+    args = parser.parse_args(argv)
+
+    from clair_tpu_torch.pipeline.lr_finder import find_learning_rate
+
+    with _reporting_launches({}):
+        result = find_learning_rate(_load_dataset(args), output_path=args.olog_fn,
+                                    device=device)
+    print(f"suggested min_lr {result.suggested_min_lr:.3e} max_lr {result.suggested_max_lr:.3e}")
+
+
+def cmd_variables(argv):
+    """Pretty-print parameters matching a regex (the reference's
+    `model.py --variables`, ref model.py:1119-1126): the JAX command's
+    lines, from the checkpoint's numpy arrays (no device)."""
+    parser = argparse.ArgumentParser(prog="variables")
+    parser.add_argument("--chkpnt_fn", required=True)
+    parser.add_argument("-v", "--variables", default=".*")
+    args = parser.parse_args(argv)
+
+    import re
+
+    import numpy as np
+
+    from clair_tpu_torch.models.checkpoint import load_checkpoint
+
+    params, _ = load_checkpoint(args.chkpnt_fn)
+    pattern = re.compile(args.variables)
+    for name, leaf in _leaves_in_jax_order(params):
+        if pattern.match(name):
+            arr = np.asarray(leaf)
+            print(f"{name} {arr.shape} mean={arr.mean():.6f} std={arr.std():.6f}")
+            if arr.size <= 64:
+                print(arr)
+
+
+def _leaves_in_jax_order(tree, prefix=""):
+    """(``/``-joined path, leaf) of a nested dict in the order of
+    jax.tree_util.tree_flatten_with_path: depth first, keys sorted."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            yield from _leaves_in_jax_order(value, f"{prefix}{key}/")
+        else:
+            yield prefix + key, value
 
 
 # ---------------------------------------------------------------------------
@@ -1263,6 +1389,7 @@ COMMANDS = {
     "train": cmd_train,
     "train_clr": cmd_train_clr,
     "evaluate": cmd_evaluate,
+    "learning_rate_finder": cmd_learning_rate_finder,
     "extract_candidates": cmd_extract_candidates,
     "ExtractVariantCandidates": cmd_extract_candidates,
     "create_tensor": cmd_create_tensor,
@@ -1278,6 +1405,7 @@ COMMANDS = {
     "convert_bin": cmd_convert_bin,
     "tensor_transform": cmd_tensor_transform,
     "TensorTransformer": cmd_tensor_transform,
+    "variables": cmd_variables,
     "overlap_variant": cmd_overlap_variant,
     "ensemble": cmd_ensemble,
     "merge_gvcf": cmd_merge_gvcf,

@@ -26,6 +26,9 @@ float32 whatever the compute dtype, so under bfloat16 everything after
 lstm1 runs in float32 on bf16-rounded weights, as JAX promotes it there;
 torch does not promote mixed matmul operands, so the products cast to the
 promoted dtype explicitly.
+
+``forward_activations`` runs the same layers, recording each one's output
+by name (the --activation_only dump), in float32 on the streaming layer.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (stem, head) pairs in output order: gt21, genotype, indel length 1 and 2
 _HEADS = (("l5_1", "head_gt21"), ("l5_2", "head_genotype"),
           ("l5_3", "head_len1"), ("l5_4", "head_len2"))
+# forward_activations' names of the four heads' outputs, in that order
+ACTIVATION_HEADS = ("gt21", "genotype", "indel_length_1", "indel_length_2")
 
 
 def param_shapes(config: ModelConfig = ModelConfig()) -> Dict:
@@ -169,33 +174,48 @@ class ClairNet(nn.Module):
         compute dtype. ``deterministic=False`` is the training forward: each
         dropout of the config whose rate is above 0 draws its mask from
         ``generator`` (on x's device)."""
-        config = self.config
         if not deterministic and generator is None:
             raise ValueError("the training forward needs a generator for dropout")
-        train = not deterministic
-        dtype = COMPUTE_DTYPES[config.compute_dtype]
+        return self._layers(x, self.bilstm, COMPUTE_DTYPES[self.config.compute_dtype],
+                            generator if not deterministic else None)
+
+    def _layers(self, x: torch.Tensor, bilstm: Callable, dtype: torch.dtype,
+                generator: Optional[torch.Generator] = None,
+                acts: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[torch.Tensor, ...]:
+        """The network on ``bilstm``'s layers in ``dtype``; dropout where
+        ``generator`` is given. ``acts``, when given, receives each layer's
+        output under forward_activations' names."""
+        config = self.config
+        train = generator is not None
+        record = acts.__setitem__ if acts is not None else lambda name, value: None
         p = {k: _tensor_tree(m) for k, m in self.named_children()}
         if dtype != torch.float32:
             p = _map_tree(lambda t: t.to(dtype), p)
         b = x.shape[0]
         h = x.reshape(b, config.no_of_positions, config.feature_dim).to(dtype)
-        h = self.bilstm(p["lstm1"], h)
+        record("input", h)
+        h = bilstm(p["lstm1"], h)
+        record("lstm1", h)
         if train and config.lstm1_dropout_rate > 0:
             h = dropout(generator, h, config.lstm1_dropout_rate)
-        h = self.bilstm(p["lstm2"], h)
+        h = bilstm(p["lstm2"], h)
+        record("lstm2", h)
         if train and config.lstm2_dropout_rate > 0:
             h = dropout(generator, h, config.lstm2_dropout_rate)
 
         # L3 slice dense: per feature column, time -> units; (B, U, F) is
         # flattened row-major to U*F, and the (F, U) bias is transposed
         l3 = torch.einsum("btf,ftu->buf", *promoted(h, p["l3"]["w"]))
-        l3 = selu(l3 + p["l3"]["b"].T[None]).reshape(b, -1)
-        l4 = selu(_dense(p["l4"], l3))
+        l3 = selu(l3 + p["l3"]["b"].T[None])
+        record("l3", l3)
+        l4 = selu(_dense(p["l4"], l3.reshape(b, -1)))
+        record("l4", l4)
         if train and config.l4_dropout_rate > 0:
             l4 = alpha_dropout(generator, l4, config.l4_dropout_rate)
 
         def stem(name):
             s = selu(_dense(p[name], l4))
+            record(name, s)
             if train and config.l5_dropout_rate > 0:
                 s = alpha_dropout(generator, s, config.l5_dropout_rate)
             return s
@@ -206,6 +226,32 @@ class ClairNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """The four softmax probability tensors, always float32."""
         return tuple(torch.softmax(l.float(), dim=-1) for l in self.forward_logits(x))
+
+
+def forward_activations(model_or_params, x: torch.Tensor,
+                        config: ModelConfig = ModelConfig()) -> Dict[str, torch.Tensor]:
+    """Each layer's output by name, as clair_tpu.models.clair.forward_activations
+    gives them (the reference's --activation_only dump): ``input``,
+    ``lstm1``, ``lstm2``, ``l3``, ``l4``, ``l5_1``..``l5_4`` and the four
+    softmaxed heads ``gt21``, ``genotype``, ``indel_length_1`` and
+    ``indel_length_2``.
+
+    ``model_or_params`` is a ClairNet, or a parameter tree in the JAX layout
+    (a ClairNet of ``config`` is built from it on x's device). Like the JAX
+    function it computes in float32 on the streaming BiLSTM whatever the
+    model's dtype and kernel flags: on a CUDA tensor both layers run row 1's
+    kernel (ops/bilstm_stream.py) in float32, on a CPU tensor its plain
+    version. Runs without a gradient."""
+    if isinstance(model_or_params, ClairNet):
+        model = model_or_params
+    else:
+        model = ClairNet.from_jax(model_or_params, config, x.device)
+    acts: Dict[str, torch.Tensor] = {}
+    with torch.inference_mode():
+        heads = model._layers(x, bilstm_stream, torch.float32, acts=acts)
+        for name, logits in zip(ACTIVATION_HEADS, heads):
+            acts[name] = torch.softmax(logits.float(), dim=-1)
+    return acts
 
 
 def _dense(p: Dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""Optimizer and the train and eval steps, on one device (port of the
-single-device part of clair_tpu/parallel/sharding.py).
+"""Optimizer and the train and eval steps (port of
+clair_tpu/parallel/sharding.py).
 
 The JAX step is a pure function of (params, opt_state); here the model owns
 its parameters and the optimizer its state, and a step updates both in
-place. A mesh (data or model parallelism) is not ported yet: passing one
-raises.
+place. Given a mesh (parallel/mesh.py: a DeviceMesh over the ranks of
+torch.distributed, one device each) the steps are data-parallel: each rank
+computes its stripe of the global batch, DistributedDataParallel sums the
+gradients over the mesh's 'data' group during ``backward()``, and the step
+returns the global batch's loss. The model-axis split of the dense trunk
+(--model_parallel > 1) is not ported (parallel/mesh.py refuses it).
 """
 
 from __future__ import annotations
@@ -12,13 +16,14 @@ from __future__ import annotations
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
+from torch.profiler import record_function
 
 from clair_tpu_torch.params import GRADIENT_CLIP_NORM, MOMENTUM
 from clair_tpu_torch.models.clair import ClairNet
-from clair_tpu_torch.models.losses import total_loss
-
-_MESH_TODO = ("a mesh (multi-GPU data or model parallelism) is not ported yet "
-              "(ROADMAP Queue 1, 'Multi-GPU')")
+from clair_tpu_torch.models.losses import COMPONENTS, total_loss
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -75,8 +80,12 @@ def set_learning_rate(optimizer: ClippedOptimizer, learning_rate: float) -> None
 def loss_fn(model: ClairNet, x, y, generator: Optional[torch.Generator], l2_lambda,
             deterministic: bool = False, sample_weights=None):
     """(loss, components) of one batch; L2 over the float32 masters."""
-    config = model.config
     logits = model.forward_logits(x, deterministic=deterministic, generator=generator)
+    return _loss(model, logits, y, l2_lambda, sample_weights)
+
+
+def _loss(model: ClairNet, logits, y, l2_lambda, sample_weights):
+    config = model.config
     return total_loss(
         logits, y, dict(model.named_parameters()),
         loss_function=config.loss_function,
@@ -90,32 +99,99 @@ def _detached(loss, components) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     return loss.detach(), {k: v.detach() for k, v in components.items()}
 
 
+class _TrainingForward(nn.Module):
+    """The training forward as a module's ``forward``, for
+    DistributedDataParallel, which readies its gradient reduction in the
+    forward it wraps. It holds the model's parameters under the prefix
+    ``model.`` (and DDP adds ``module.``): the optimizer, the L2 term and the
+    checkpoints take their names from the unwrapped ClairNet."""
+
+    def __init__(self, model: ClairNet):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, generator):
+        return self.model.forward_logits(x, deterministic=False, generator=generator)
+
+
+def _sum_hook(group, bucket):
+    """A DDP communication hook that SUMS the ranks' gradients (DDP's
+    default averages them): the loss is a sum over the batch, so the
+    global gradient is the sum of the stripes' gradients."""
+    work = dist.all_reduce(bucket.buffer(), group=group, async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
+
+
+class _DataParallel:
+    """What a step needs of a mesh: its 'data' group and whether this rank
+    leads it. The lead rank alone adds L2 (its gradient would otherwise be
+    summed once per rank)."""
+
+    def __init__(self, mesh):
+        self.group = mesh.get_group("data")
+        self.lead = mesh.get_local_rank("data") == 0
+
+    def l2_lambda(self, l2_lambda):
+        return l2_lambda if self.lead else 0.0
+
+    def summed(self, loss, components):
+        """The global batch's loss and components: the sums over the ranks
+        of each rank's (L2 comes from the lead rank alone, and
+        l2_without_lambda, the same on every rank, is not summed)."""
+        values = torch.stack([loss.detach(), *(components[k].detach() for k in COMPONENTS)])
+        dist.all_reduce(values, group=self.group)
+        out = {k: v.detach() for k, v in components.items()}
+        out.update(zip(COMPONENTS, values[1:]))
+        return values[0], out
+
+
 def make_train_step(model: ClairNet, optimizer: ClippedOptimizer, mesh=None):
     """step(x, y, generator, l2_lambda, sample_weights=None) -> (loss,
     components): the training forward (dropout from ``generator``), the
     backward, clip and update. Returns the pre-update loss as device
-    tensors; nothing waits for the device."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    tensors; nothing waits for the device.
 
+    With a mesh, x and y are this rank's stripe of the global batch and the
+    returned loss is the global batch's. The gradients are summed over the
+    ranks inside ``backward()``, so the clip sees the global norm, and every
+    rank applies the same update."""
+    if mesh is None:
+        forward, l2_of, reported = _TrainingForward(model), lambda l2: l2, _detached
+    else:
+        parallel = _DataParallel(mesh)
+        # DDP broadcasts the lead rank's parameters to the others here
+        forward = DistributedDataParallel(_TrainingForward(model), process_group=parallel.group)
+        forward.register_comm_hook(parallel.group, _sum_hook)
+        l2_of, reported = parallel.l2_lambda, parallel.summed
+
+    # the ranges name the step's parts in a profiler trace
+    # (tools/torch_trace_split.py); they cost a few microseconds a step
     def step(x, y, generator, l2_lambda, sample_weights=None):
-        optimizer.zero_grad()
-        loss, components = loss_fn(model, x, y, generator, l2_lambda, False, sample_weights)
-        loss.backward()
-        optimizer.step()
-        return _detached(loss, components)
+        with record_function("train_step.forward"):
+            optimizer.zero_grad()
+            logits = forward(x, generator)
+        with record_function("train_step.loss"):
+            loss, components = _loss(model, logits, y, l2_of(l2_lambda), sample_weights)
+        with record_function("train_step.backward"):
+            loss.backward()
+        with record_function("train_step.optimizer"):
+            optimizer.step()
+        return reported(loss, components)
 
     return step
 
 
 def make_eval_step(model: ClairNet, mesh=None):
     """step(x, y, l2_lambda, sample_weights=None) -> (loss, components),
-    the deterministic forward without a gradient."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    the deterministic forward without a gradient; with a mesh, of the
+    global batch, x and y being this rank's stripe."""
+    parallel = _DataParallel(mesh) if mesh is not None else None
 
     def step(x, y, l2_lambda, sample_weights=None):
         with torch.no_grad():
-            return _detached(*loss_fn(model, x, y, None, l2_lambda, True, sample_weights))
+            if parallel is None:
+                return _detached(*loss_fn(model, x, y, None, l2_lambda, True, sample_weights))
+            return parallel.summed(*loss_fn(model, x, y, None, parallel.l2_lambda(l2_lambda),
+                                            True, sample_weights))
 
     return step

@@ -220,11 +220,15 @@ def genome_windows(
 def _run_window(args_tuple):
     """Worker entry: build a predictor in-process, on the torch device the
     work carries, and call one window. Exceptions come back as data so one
-    bad window can't sink the pool."""
+    bad window can't sink the pool. The last field is the kernels' launches
+    in this window (ops.launch_counts), which the parent sums."""
+    from clair_tpu_torch.ops import launch_counts, launches_since
+
     base_config, checkpoint_path, window, output_prefix, device = args_tuple
     contig, start, end = window
     path = f"{output_prefix}.{contig}_{start}_{end}.vcf"
     started = time.perf_counter()
+    before = launch_counts()
     try:
         from clair_tpu_torch.models.checkpoint import load_checkpoint
         from clair_tpu_torch.params import PREDICT_COMPUTE_DTYPE, ModelConfig
@@ -238,11 +242,12 @@ def _run_window(args_tuple):
             base_config, contig=contig, ctg_start=start, ctg_end=end
         )
         sites = call_bam(config, predictor, output_path=path)
-        return path, window, sites, None, time.perf_counter() - started
+        return (path, window, sites, None, time.perf_counter() - started,
+                launches_since(before))
     except Exception as exc:
         return (
             path, window, 0, f"{type(exc).__name__}: {exc}",
-            time.perf_counter() - started,
+            time.perf_counter() - started, launches_since(before),
         )
 
 
@@ -259,6 +264,7 @@ def call_bam_parallel(
     num_shards: int = 1,
     shard_id: int = 0,
     device: str = "cuda",
+    worker_launches: Optional[Dict[str, int]] = None,
 ) -> List[str]:
     """Run call_bam over every genome window; returns the per-window VCF
     paths (merge with merge_vcfs).
@@ -267,6 +273,10 @@ def call_bam_parallel(
     a process pool — each worker has its own predictor on ``device``,
     keeping the device saturated while host pileups proceed in parallel
     (the reference's GNU-parallel share-nothing model, in-process).
+
+    ``worker_launches``, when given, receives the pool workers' kernel
+    launches, summed over the windows (the command's JSON line adds them to
+    its own process's).
 
     Every window's outcome lands in a JobLog next to the outputs; a failed
     window is recorded and skipped (the run continues), and resume=True
@@ -305,13 +315,17 @@ def call_bam_parallel(
     if max_workers > 1 and checkpoint_path is not None:
         import multiprocessing
 
+        from clair_tpu_torch.ops import add_launches
+
         context = multiprocessing.get_context("spawn")
         with context.Pool(max_workers) as pool:
             work = [
                 (base_config, checkpoint_path, window, output_prefix, device)
                 for window in windows
             ]
-            for path, window, sites, error, elapsed in pool.imap(_run_window, work):
+            for path, window, sites, error, elapsed, launches in pool.imap(_run_window, work):
+                if worker_launches is not None:
+                    add_launches(worker_launches, launches)
                 if error is None:
                     logger.info("window %s:%d-%d -> %d sites", *window, sites)
                 finish(window, path, sites, error, elapsed)

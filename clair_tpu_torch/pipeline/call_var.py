@@ -1,5 +1,7 @@
-"""The calling Predictor on a torch device (port of the single-device
-``Predictor`` of clair_tpu/pipeline/call_var.py), and the host side of
+"""The calling Predictor on a torch device (port of the ``Predictor`` of
+clair_tpu/pipeline/call_var.py), ``ShardedPredictor`` over several
+devices (the JAX one shards a batch over a mesh; here each device holds
+its own Predictor and takes an equal slice of the batch), and the host side of
 calling around it: ``call_variants``, ``emit_batch`` and the per-batch
 decode, the JAX file's own code.
 
@@ -107,18 +109,20 @@ class Predictor:
         """Dispatch one (possibly short) batch; returns (handle, n)."""
         n = x.shape[0]
         link = torch.from_numpy(_pack_uplink(x, self.batch_size))
-        if self._cuda:
-            link = link.pin_memory()
-        with torch.inference_mode():
-            x_dev = link.to(self._device, non_blocking=True)
+        if not self._cuda:
+            with torch.inference_mode():
+                return (torch.cat(self.model(_device_input(link)), dim=-1), None), n
+        # everything on this Predictor's device and its current stream
+        with torch.cuda.device(self._device), torch.inference_mode():
+            x_dev = link.pin_memory().to(self._device, non_blocking=True)
             out = torch.cat(self.model(_device_input(x_dev)), dim=-1)
-        if self._cuda and self.eager_host_copy:
+            if not self.eager_host_copy:
+                return (out, None), n
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-            return (host, done), n
-        return (out, None), n
+        return (host, done), n
 
     def gather(self, handle, n: int):
         """The batch's (n, 90) output split into the four head arrays."""
@@ -126,6 +130,55 @@ class Predictor:
         if done is not None:
             done.synchronize()
         return split_label_vector(out[:n].cpu().numpy())
+
+    def gather_group(self, handles: Sequence, ns: Sequence[int]) -> List[Tuple]:
+        """Per-batch head arrays of several batches, in order."""
+        return [self.gather(h, n) for h, n in zip(handles, ns)]
+
+
+class ShardedPredictor:
+    """A Predictor per device (by default cuda:0 .. cuda:N-1 of the visible
+    cards), with the Predictor's surface. ``batch_size`` is rounded up to a
+    multiple of N; each padded batch is cut into N equal slices and
+    slice i dispatched on device i, on its current stream, without waiting
+    for the others; ``gather`` concatenates the slices' outputs in order.
+    Inference is a pure map, so no collective is needed. The devices may
+    repeat (several Predictors on one card) or be the CPU."""
+
+    def __init__(self, params: dict, config: ModelConfig,
+                 batch_size: int = PREDICT_BATCH_SIZE,
+                 devices: Optional[Sequence[str]] = None):
+        if devices is None:
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("ShardedPredictor needs a device and no CUDA device is visible")
+        self.devices = list(devices)
+        self._per = -(-batch_size // len(self.devices))
+        self.batch_size = self._per * len(self.devices)
+        self.config = config
+        self.predictors = [Predictor(params, config, self._per, device=d) for d in self.devices]
+
+    @property
+    def eager_host_copy(self) -> bool:
+        return self.predictors[0].eager_host_copy
+
+    @eager_host_copy.setter
+    def eager_host_copy(self, value: bool) -> None:
+        for predictor in self.predictors:
+            predictor.eager_host_copy = value
+
+    def predict_async(self, x: np.ndarray):
+        """Dispatch one (possibly short) batch, a slice on each device;
+        returns (handle, n)."""
+        n = x.shape[0]
+        handles = [p.predict_async(x[i * self._per:(i + 1) * self._per])
+                   for i, p in enumerate(self.predictors)]
+        return handles, n
+
+    def gather(self, handle, n: int):
+        """The batch's (n, 90) output split into the four head arrays."""
+        parts = [p.gather(h, k) for p, (h, k) in zip(self.predictors, handle)]
+        return tuple(np.concatenate(head) for head in zip(*parts))
 
     def gather_group(self, handles: Sequence, ns: Sequence[int]) -> List[Tuple]:
         """Per-batch head arrays of several batches, in order."""

@@ -1,4 +1,5 @@
-"""Training loop on one torch device (port of clair_tpu/pipeline/train.py).
+"""Training loop on one torch device, or data-parallel over several (port of
+clair_tpu/pipeline/train.py).
 
 The same semantics as the JAX loop:
 - a 90/10 train/validation split by index (or explicit train/val bins);
@@ -22,19 +23,31 @@ selects (models/clair.py:select_bilstm; the streaming pair unless a flag
 says otherwise), forward and backward; a CPU device runs their plain
 versions. ``use_stream_bilstm`` acts as in the JAX loop: True sets
 ``use_pallas_stream_bilstm``, None and False leave the model's flags alone.
+
+With ``TrainingConfig.mesh`` (parallel/mesh.py) this process is one rank
+of a data-parallel run on ``TrainingConfig.device``: it reads the same
+epoch stream as every other rank, pads each global batch to a multiple of
+the data axis with sample weight 0 and steps on its stripe
+(parallel/distributed.py). The steps return the global batch's losses, so
+every rank takes the same schedule decisions. Process 0 alone writes
+checkpoints and runs the evaluation at the end; with more than one rank,
+resume goes through ``broadcast_checkpoint`` and the best epoch is restored
+from a snapshot kept in memory.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from clair_tpu_torch.params import (
     CLR_MAX_LR,
@@ -60,6 +73,12 @@ from clair_tpu_torch.models.checkpoint import (
 )
 from clair_tpu_torch.models.clair import ClairNet, init_params, params_from_jax, params_to_jax
 from clair_tpu_torch.models.losses import COMPONENTS
+from clair_tpu_torch.parallel.distributed import (
+    broadcast_checkpoint,
+    check_multihost_mesh,
+    local_stripe,
+    process_info,
+)
 from clair_tpu_torch.parallel.sharding import (
     make_eval_step,
     make_optimizer,
@@ -92,7 +111,8 @@ class TrainingConfig:
     # its third learning-rate switch
     hard_max_epochs: Optional[int] = None
     checkpoint_every: int = 1
-    # not ported: multi-GPU training (ROADMAP Queue 1, 'Multi-GPU')
+    # a DeviceMesh over the ranks of torch.distributed (parallel/mesh.py):
+    # data-parallel training, this process being one rank on ``device``
     mesh: Optional[object] = None
     seed: int = 0
     evaluate_at_end: bool = True
@@ -132,7 +152,7 @@ class _StepValues:
             self._host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
             self._host.copy_(values, non_blocking=True)
             self._done = torch.cuda.Event()
-            self._done.record()
+            self._done.record(torch.cuda.current_stream(values.device))
         else:
             self._host = values
 
@@ -154,9 +174,9 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _check_supported(config: TrainingConfig, device: torch.device) -> None:
-    if config.mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU training is not ported yet (ROADMAP Queue 1, 'Multi-GPU')")
+    if config.mesh is not None and not isinstance(config.mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh (parallel/mesh.py: make_mesh), not "
+                        f"{type(config.mesh).__name__}")
     model = config.model
     if (device.type == "cuda" and config.use_stream_bilstm is False
             and not (model.use_pallas_bilstm or model.use_pallas_stream_bilstm
@@ -177,9 +197,34 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
     model_config = dataclasses.replace(config.model, compute_dtype=config.train_compute_dtype)
     if config.use_stream_bilstm:
         model_config = dataclasses.replace(model_config, use_pallas_stream_bilstm=True)
-    generator = torch.Generator(device=device).manual_seed(config.seed)
+    rank, world = 0, 1
+    shard = None
+    if config.mesh is not None:
+        rank, world = process_info()
+        check_multihost_mesh(config.mesh, world)
 
-    if config.init_checkpoint is not None:
+        def shard(x, y):
+            # every rank holds the same GLOBAL batch (the same epoch stream)
+            # and steps on its row stripe: the global batch is the
+            # single-process run's
+            n = len(x)
+            padded = -(-n // world) * world
+            w = np.zeros(padded, dtype=np.float32)
+            w[:n] = 1.0
+            if padded != n:
+                x = np.concatenate([x, np.zeros((padded - n,) + x.shape[1:], x.dtype)])
+                y = np.concatenate([y, np.zeros((padded - n,) + y.shape[1:], y.dtype)])
+            rows = local_stripe(padded, rank, world)
+            return x[rows], y[rows], w[rows]
+    # dropout masks differ by rank, so that the stripes share none
+    generator = torch.Generator(device=device).manual_seed(config.seed + rank)
+
+    if config.init_checkpoint is not None and world > 1:
+        # checkpoints are written by process 0 only: it loads and broadcasts
+        # the parameters and the epoch counter
+        params, epoch0 = broadcast_checkpoint(config.init_checkpoint)
+        start_epoch = epoch0 + 1
+    elif config.init_checkpoint is not None:
         params, _ = load_checkpoint(config.init_checkpoint)
         start_epoch = epoch_from_path(config.init_checkpoint) + 1
     else:
@@ -189,8 +234,8 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
 
     optimizer = make_optimizer(dict(model.named_parameters()), model_config.optimizer_name,
                                config.learning_rate)
-    train_step = make_train_step(model, optimizer)
-    eval_step = make_eval_step(model)
+    train_step = make_train_step(model, optimizer, config.mesh)
+    eval_step = make_eval_step(model, config.mesh)
 
     n_train = dataset.train_size_hint or int(dataset.dataset_size * TRAINING_DATASET_PERCENTAGE)
     n_val = dataset.dataset_size - n_train
@@ -198,6 +243,7 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
     block_order = np.arange(dataset.n_blocks)
     # a generator of its own: the block shuffle is reproducible from the seed
     shuffle_rs = np.random.RandomState(config.seed)
+    best_snapshot = None  # (val_loss, epoch, params) with more than one rank
 
     learning_rate = config.learning_rate
     l2_lambda = config.l2_lambda
@@ -233,14 +279,18 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
             decompress_workers=config.decompress_workers, cast_to_float32=False,
         )
         for x, y, is_training in batches:
+            weights = None
+            if shard is not None:
+                x, y, weights = shard(x, y)
+                weights = _to_device(weights, device)
             x, y = _to_device(x, device), _to_device(y, device)
             if is_training:
                 if clr is not None:
                     learning_rate = clr()
                     set_learning_rate(optimizer, learning_rate)
-                loss, components = train_step(x, y, generator, l2_lambda)
+                loss, components = train_step(x, y, generator, l2_lambda, weights)
             else:
-                loss, components = eval_step(x, y, l2_lambda)
+                loss, components = eval_step(x, y, l2_lambda, weights)
             # read the PREVIOUS step's values: the device runs ahead
             if pending is not None:
                 account(pending)
@@ -260,7 +310,11 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
         validation_losses.append((val_loss_sum, epoch))
 
         is_last = config.schedule != "adaptive" and epoch >= config.max_epochs
-        if config.output_prefix is not None and (
+        if world > 1 and config.restore_best and (
+            best_snapshot is None or val_loss_sum < best_snapshot[0]
+        ):
+            best_snapshot = (val_loss_sum, epoch, params_to_jax(model.state_dict()))
+        if config.output_prefix is not None and rank == 0 and (
             epoch % config.checkpoint_every == 0 or is_last
         ):
             save_checkpoint(
@@ -289,20 +343,30 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
 
     logger.info("[INFO] Training time elapsed: %.2f s", time.time() - training_start)
 
-    saved = {
-        e for _, e in validation_losses
-        if config.output_prefix is not None
-        and os.path.exists(checkpoint_path(config.output_prefix, e))
-    }
-    restorable = [v for v in validation_losses if v[1] in saved] or validation_losses
-    best_epoch = sorted(restorable)[0][1]
-    logger.info("[INFO] Best validation loss at epoch: %d", best_epoch)
     params = params_to_jax(model.state_dict())
-    if not config.restore_best:
-        best_epoch = epoch  # keep the final-epoch parameters
-    elif config.output_prefix is not None and best_epoch in saved:
-        params, _ = load_checkpoint(checkpoint_path(config.output_prefix, best_epoch))
-    if config.evaluate_at_end:
+    if world > 1:
+        # no shared filesystem: the best epoch comes from the snapshot, and
+        # every rank ends with the same parameters
+        best_epoch = sorted(validation_losses)[0][1]
+        logger.info("[INFO] Best validation loss at epoch: %d", best_epoch)
+        if best_snapshot is not None:
+            _, best_epoch, params = best_snapshot
+        else:
+            best_epoch = epoch
+    else:
+        saved = {
+            e for _, e in validation_losses
+            if config.output_prefix is not None
+            and os.path.exists(checkpoint_path(config.output_prefix, e))
+        }
+        restorable = [v for v in validation_losses if v[1] in saved] or validation_losses
+        best_epoch = sorted(restorable)[0][1]
+        logger.info("[INFO] Best validation loss at epoch: %d", best_epoch)
+        if not config.restore_best:
+            best_epoch = epoch  # keep the final-epoch parameters
+        elif config.output_prefix is not None and best_epoch in saved:
+            params, _ = load_checkpoint(checkpoint_path(config.output_prefix, best_epoch))
+    if config.evaluate_at_end and rank == 0:
         from clair_tpu_torch.pipeline.evaluate import evaluate_model
 
         evaluate_model(params, model_config, dataset, device=config.device)
@@ -313,6 +377,88 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
         validation_losses=validation_losses,
         best_epoch=best_epoch,
     )
+
+
+def train_on_devices(load_dataset: Callable[[], BinDataset], config: TrainingConfig, n: int,
+                     *, profile_dir: Optional[str] = None, backend: Optional[str] = None,
+                     devices: Optional[Sequence[str]] = None,
+                     timeout_s: Optional[float] = None) -> Tuple[TrainResult, dict]:
+    """train_model over n devices of this host, one rank process each
+    (spawned), meeting at a free localhost port: rank r on cuda:r, or on
+    ``devices[r]``, or on the CPU when config.device is the CPU. Every rank
+    loads its dataset with ``load_dataset`` (a picklable callable). Returns
+    rank 0's TrainResult and the ranks' kernel launches, summed. Fewer
+    visible GPUs than n raise. ``backend`` (default NCCL on CUDA, gloo on
+    the CPU) and ``timeout_s`` (the ranks' wall-clock limit and their
+    collectives' timeout) serve tests and the smoke test."""
+    from clair_tpu_torch.ops import add_launches
+    from clair_tpu_torch.parallel.distributed import free_port, spawn
+    from clair_tpu_torch.parallel.mesh import visible_devices
+
+    devices = devices or visible_devices(n, _device_type(config.device))
+    address = f"localhost:{free_port()}"
+    results = spawn(train_rank, n, (n, address, load_dataset, config, profile_dir, backend,
+                                    devices, timeout_s), timeout_s=timeout_s)
+    launches: dict = {}
+    for _, rank_launches in results:
+        add_launches(launches, rank_launches)
+    return results[0][0], launches
+
+
+def train_rank(rank: int, world: int, address: str, load_dataset: Callable[[], BinDataset],
+               config: TrainingConfig, profile_dir: Optional[str] = None,
+               backend: Optional[str] = None, devices: Optional[Sequence[str]] = None,
+               timeout_s: Optional[float] = None) -> Tuple[TrainResult, dict]:
+    """One rank of a data-parallel run: join the group at ``address``
+    (parallel/distributed.py: init_distributed), build the mesh over every
+    rank, train on this rank's device, leave the group. Returns
+    (TrainResult, this process's kernel launches during the run)."""
+    import torch.distributed as dist
+
+    from clair_tpu_torch.ops import launch_counts, launches_since
+    from clair_tpu_torch.parallel.distributed import DEFAULT_TIMEOUT_S, init_distributed
+    from clair_tpu_torch.parallel.mesh import make_mesh
+
+    device_type = _device_type(config.device)
+    if device_type == "cpu":
+        # the ranks share this host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    device = init_distributed(address, world, rank, device_type, backend=backend,
+                              device=devices[rank] if devices else None,
+                              timeout_s=timeout_s or DEFAULT_TIMEOUT_S)
+    try:
+        config = dataclasses.replace(config, mesh=make_mesh(world, device_type=device_type),
+                                     device=str(device))
+        dataset = load_dataset()
+        before = launch_counts()
+        with profiled(profile_dir, config.device, f"rank{rank}"):
+            result = train_model(dataset, config)
+        return result, launches_since(before)
+    finally:
+        dist.destroy_process_group()
+
+
+def _device_type(device: str) -> str:
+    return torch.device(device).type
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: Optional[str], device: str, worker_name: Optional[str] = None):
+    """A torch.profiler trace of what runs inside (CPU ops, and CUDA kernels
+    on a CUDA device), written into ``profile_dir`` as a
+    ``*.pt.trace.json`` by tensorboard_trace_handler when it ends; nothing
+    when profile_dir is None (train --profile_dir)."""
+    if profile_dir is None:
+        yield
+        return
+    import torch.profiler as tp
+
+    activities = [tp.ProfilerActivity.CPU]
+    if _device_type(device) == "cuda":
+        activities.append(tp.ProfilerActivity.CUDA)
+    with tp.profile(activities=activities,
+                    on_trace_ready=tp.tensorboard_trace_handler(profile_dir, worker_name)):
+        yield
 
 
 def _shuffle_first_n(array: np.ndarray, n: int, rs: np.random.RandomState) -> np.ndarray:

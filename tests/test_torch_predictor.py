@@ -139,27 +139,23 @@ def test_threaded_runner_takes_the_port_predictor(params, ont_genome):
 
 
 def test_cli_call_bam_runs_the_jax_runner_with_the_port_predictor(
-        ont_genome, monkeypatch, capsys):
+        ont_genome, capsys):
     """`python -m clair_tpu_torch call_bam` takes the JAX command's flags and
     runs the port's copy of its runner with the port's predictor (here
-    placed on the CPU, where the command itself refuses to run): the JAX
+    on the CPU, where the command line refuses to run): the JAX
     command's calls, and one JSON line of kernel launches."""
-    import functools
     import json
 
     from clair_tpu import cli as jax_cli
     from clair_tpu_torch import cli
-    from clair_tpu_torch.pipeline import call_var as port_call_var
 
     root, config = ont_genome
-    monkeypatch.setattr(port_call_var, "Predictor",
-                        functools.partial(Predictor, device="cpu"))
     argv = ["call_bam", "--bam_fn", config.bam_path, "--ref_fn", config.fasta_path,
             "--chkpnt_fn", CKPT, "--ctgName", "chr1", "--threshold", "0.2",
             "--dtype", "float32"]
     want, got = str(root / "cli_jax.vcf"), str(root / "cli_port.vcf")
     assert jax_cli.main(argv + ["--call_fn", want]) == 0
-    assert cli.main(argv + ["--call_fn", got]) == 0
+    cli.COMMANDS["call_bam"](argv[1:] + ["--call_fn", got], device="cpu")
     _assert_same_calls(_rows(got), _rows(want))
     report = capsys.readouterr().err.strip().splitlines()[-1]
     assert json.loads(report) == {"kernel_launches": dict.fromkeys(
@@ -167,35 +163,28 @@ def test_cli_call_bam_runs_the_jax_runner_with_the_port_predictor(
          "bilstm_precomputed", "bilstm2"], 0)}
 
 
-def test_cli_call_bam_parallel_threaded_matches_jax(ont_genome, monkeypatch):
+def test_cli_call_bam_parallel_threaded_matches_jax(ont_genome):
     """The threaded WGS runner through both CLIs, over two windows."""
-    import functools
-
     from clair_tpu import cli as jax_cli
     from clair_tpu_torch import cli
-    from clair_tpu_torch.pipeline import call_var as port_call_var
 
     root, config = ont_genome
-    monkeypatch.setattr(port_call_var, "Predictor",
-                        functools.partial(Predictor, device="cpu"))
     argv = ["call_bam_parallel", "--bam_fn", config.bam_path,
             "--ref_fn", config.fasta_path, "--chkpnt_fn", CKPT,
             "--threshold", "0.2", "--dtype", "float32", "--refChunkSize", "2000",
             "--workers", "2", "--run"]
     assert jax_cli.main(argv + ["--output_prefix", str(root / "wgs_jax")]) == 0
-    assert cli.main(argv + ["--output_prefix", str(root / "wgs_port")]) == 0
+    cli.COMMANDS["call_bam_parallel"](argv[1:] + ["--output_prefix", str(root / "wgs_port")],
+                                      device="cpu")
     _assert_same_calls(_rows(str(root / "wgs_port.vcf")), _rows(str(root / "wgs_jax.vcf")))
 
 
-def test_cli_call_var_matches_jax(ont_genome, monkeypatch):
+def test_cli_call_var_matches_jax(ont_genome):
     """call_var over a text tensor file (the window's pileup tensors)."""
-    import functools
-
     from clair_tpu import cli as jax_cli
     from clair_tpu.data.tensor_stream import tensor_line_from
     from clair_tpu.pipeline.call_bam import prepare_window
     from clair_tpu_torch import cli
-    from clair_tpu_torch.pipeline import call_var as port_call_var
 
     root, config = ont_genome
     work = prepare_window(config)
@@ -204,14 +193,12 @@ def test_cli_call_var_matches_jax(ont_genome, monkeypatch):
         for i, center in enumerate(work.centers):
             print(tensor_line_from("chr1", int(center), work.sequences[i],
                                    work.tensors[i]), file=fh)
-    monkeypatch.setattr(port_call_var, "Predictor",
-                        functools.partial(Predictor, device="cpu"))
     argv = ["call_var", "--tensor_fn", tensors, "--chkpnt_fn", CKPT,
             "--bam_fn", config.bam_path, "--ref_fn", config.fasta_path,
             "--dtype", "float32"]
     want, got = str(root / "var_jax.vcf"), str(root / "var_port.vcf")
     assert jax_cli.main(argv + ["--call_fn", want]) == 0
-    assert cli.main(argv + ["--call_fn", got]) == 0
+    cli.COMMANDS["call_var"](argv[1:] + ["--call_fn", got], device="cpu")
     _assert_same_calls(_rows(got), _rows(want))
 
 
@@ -224,9 +211,16 @@ PARALLEL_ARGS = ["call_bam_parallel", "--bam_fn", "x.bam", "--ref_fn", "x.fa",
     (PARALLEL_ARGS + ["--run", "--num_devices", "2"], "num_devices"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match):
+    """What the command line cannot run here raises, with no fallback:
+    the activation dump without a card, and two cards where fewer are
+    visible."""
+    import torch
+
     from clair_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match=match):
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA devices are visible: the commands would run")
+    with pytest.raises(RuntimeError, match=match):
         cli.main(argv)
 
 
@@ -252,10 +246,14 @@ def test_cli_command_sheet_names_the_port(ont_genome):
 
 
 def test_cli_refuses_more_than_one_device():
+    """--num_devices beyond the visible cards raises; it does not shrink."""
+    import torch
+
     from clair_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        cli._predictor_from(CKPT, num_devices=2)
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError, match=f"--num_devices {n} needs {n} CUDA devices"):
+        cli._predictor_from(CKPT, num_devices=n)
 
 
 def test_cli_refuses_to_run_without_cuda(ont_genome):

@@ -6,7 +6,6 @@ equals a one-worker run's; a worker that cannot reach its device records
 its windows as failed in the joblog; and --num_devices with --process_pool
 is a usage error, as in the JAX CLI."""
 
-import functools
 import json
 
 import numpy as np
@@ -18,7 +17,6 @@ from clair_tpu_torch.io.bai import build_bai
 from clair_tpu_torch.models.checkpoint import save_checkpoint
 from clair_tpu_torch.models.clair import init_params
 from clair_tpu_torch.params import ModelConfig
-from clair_tpu_torch.pipeline import call_var
 from clair_tpu_torch.utils.simulate import (
     plant_variants, random_reference, simulate_bam, write_fasta,
 )
@@ -53,10 +51,9 @@ def _rows(path):
     return [r for r in open(path) if not r.startswith("#")]
 
 
-def test_pool_calls_every_window_once_and_merges_the_one_worker_vcf(pool_genome, tmp_path,
-                                                                    monkeypatch):
+def test_pool_calls_every_window_once_and_merges_the_one_worker_vcf(pool_genome, tmp_path):
     pool = str(tmp_path / "pool")
-    cli.cmd_call_bam_parallel(_argv(pool_genome, pool, "--workers", "2"), pool_device="cpu")
+    cli.cmd_call_bam_parallel(_argv(pool_genome, pool, "--workers", "2"), device="cpu")
     entries = [json.loads(line) for line in open(pool + ".joblog")]
     assert [e["status"] for e in entries] == ["ok"] * 3
     windows = [tuple(e["window"]) for e in entries]
@@ -71,9 +68,8 @@ def test_pool_calls_every_window_once_and_merges_the_one_worker_vcf(pool_genome,
 
     # one worker: the command's own process calls every window, with the
     # predictor of the command's factory
-    monkeypatch.setattr(call_var, "Predictor", functools.partial(call_var.Predictor, device="cpu"))
     one = str(tmp_path / "one")
-    cli.cmd_call_bam_parallel(_argv(pool_genome, one, "--workers", "1"))
+    cli.cmd_call_bam_parallel(_argv(pool_genome, one, "--workers", "1"), device="cpu")
     assert [json.loads(line)["status"] for line in open(one + ".joblog")] == ["ok"] * 3
     assert _rows(one + ".vcf") == merged
 
@@ -98,3 +94,18 @@ def test_num_devices_with_the_pool_is_a_usage_error(pool_genome, tmp_path, capsy
                                               "--num_devices", "2")])
     assert exit_info.value.code == 2
     assert "--process_pool each worker process owns its own device" in capsys.readouterr().err
+
+
+def test_a_window_returns_its_kernel_launches(pool_genome, tmp_path):
+    """A worker's result carries its window's kernel launches (none on the
+    CPU), by wrapper, which the command's JSON line adds to its own."""
+    from clair_tpu_torch.ops import launch_counts
+    from clair_tpu_torch.pipeline.call_bam import CallBamConfig
+    from clair_tpu_torch.pipeline.call_bam_parallel import _run_window
+
+    bam, fa, ckpt = pool_genome
+    base = CallBamConfig(bam_path=bam, fasta_path=fa, minimum_af=0.2)
+    path, window, sites, error, _, launches = _run_window(
+        (base, ckpt, ("chr1", 1, 2000), str(tmp_path / "w"), "cpu"))
+    assert error is None and sites > 0 and window == ("chr1", 1, 2000)
+    assert launches == dict.fromkeys(launch_counts(), 0)
