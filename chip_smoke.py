@@ -75,6 +75,15 @@ Phases, each printing its results and seconds:
    10e. call_bam through ShardedPredictor(devices=["cuda:0", "cuda:0"]): the
         rows of phase 7's bfloat16 run; ``call_bam --num_devices 2`` on a
         one-card machine raises
+   10f. the model axis on the one card: train_model on a (1, 2) mesh (two
+        gloo ranks on cuda:0, the dense trunk split between them) against
+        the unwrapped train_model, phase 8's bin, float32, dropout off:
+        loss sums within rtol 1e-3 and the same best epoch, the gathered
+        parameters within rtol 1e-3, atol 1e-5 of the unwrapped run's but
+        for a 1e-3 share of each leaf, the ranks' launches twice its (rows
+        1 and 2 only); then the first train step with dropout on, on the
+        mesh and in one process: the global norm before the clip within
+        rtol 1e-5, each leaf's gradient within 1e-4 of its largest
 9. times (CUDA events after warm-up) beside the card's name and power limit;
    the model's calling forward at B = 512 in both dtypes, streaming and
    under use_pallas_bilstm
@@ -86,10 +95,10 @@ Phases, each printing its results and seconds:
        work) and the time of the one PyTorch call that computes the same
        function, where there is one (torch.nn.LSTM, cuDNN, TF32 off)
 
-Each run of phases 7, 7b, 7c, 8, 8b, 8c and 10a-10e runs in a process of
+Each run of phases 7, 7b, 7c, 8, 8b, 8c and 10a-10f runs in a process of
 its own, so the launch counts it reports start from 0 just before it and
 are read just after it; the processes a run spawns (7c's pool workers,
-10d's ranks) return their counts, which the run adds to its own. 9c sets
+10d's and 10f's ranks) return their counts, which the run adds to its own. 9c sets
 bilstm2's count to 0 just before its call. Any failed
 phase raises, so the script exits non-zero without the last line. The last
 two lines are a JSON summary of the kernels and the device line
@@ -266,6 +275,72 @@ print(json.dumps({k: {"training_losses": r.training_losses,
                       "best_epoch": r.best_epoch, "kernel_launches": launches, "wall": wall}
                   for k, (r, launches, wall) in runs.items()}), file=sys.stderr)
 """
+# phase 10f: the model axis on the one card, in a process of its own (it
+# spawns the ranks): the unwrapped run, and two gloo ranks on cuda:0 on a
+# (1, 2) mesh; the parameters, and the first step's gradients, are compared
+# here, leaf by leaf
+MODEL_PARALLEL_SCRIPT = """
+import dataclasses, functools, json, logging, sys, time
+import numpy as np
+from clair_tpu_torch.data.bins import load_bin
+from clair_tpu_torch.models.clair import param_shapes
+from clair_tpu_torch.ops import launch_counts, launches_since
+from clair_tpu_torch.params import ModelConfig
+from clair_tpu_torch.parallel.distributed import free_port, spawn
+from clair_tpu_torch.parallel.tensor_parallel import shard_dim
+from clair_tpu_torch.pipeline.train import TrainingConfig, train_model, train_on_devices
+from chip_smoke import first_step
+logging.basicConfig(format="%(message)s", level=logging.INFO)
+bin_fn, epochs = sys.argv[1], int(sys.argv[2])
+model = dataclasses.replace(ModelConfig(), lstm2_dropout_rate=0.0, l4_dropout_rate=0.0,
+                            l5_dropout_rate=0.0)
+# the final parameters on both sides (no best-epoch snapshot to restore)
+config = TrainingConfig(model=model, schedule="fixed", max_epochs=epochs, evaluate_at_end=False,
+                        train_compute_dtype="float32", restore_best=False, device="cuda")
+load = functools.partial(load_bin, bin_fn)
+runs = {}
+before, started = launch_counts(), time.perf_counter()
+single = train_model(load(), config)
+runs["single"] = (single, launches_since(before), time.perf_counter() - started)
+started = time.perf_counter()
+runs["model_2"] = (*train_on_devices(load, config, 2, backend="gloo",
+                                     devices=["cuda:0", "cuda:0"], timeout_s=600,
+                                     model_parallel=2),
+                   time.perf_counter() - started)
+def leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, np.asarray(v)
+want = dict(leaves(single.params))
+# by leaf: its size, its elements outside rtol 1e-3, atol 1e-5 of the
+# unwrapped run's, the largest |difference|, whether all are finite
+params = {name: [value.size,
+                 int(np.sum(np.abs(value - want[name]) > 1e-5 + 1e-3 * np.abs(want[name]))),
+                 float(np.max(np.abs(value - want[name]))), bool(np.isfinite(value).all())]
+          for name, value in leaves(runs["model_2"][0].params)}
+full_shapes = ({name: value.shape for name, value in leaves(runs["model_2"][0].params)}
+               == {name: tuple(shape) for name, shape in leaves(param_shapes(model))})
+# the first train step, dropout on, in this process and on the mesh: each
+# leaf's largest |gradient difference| over its largest |gradient| (a split
+# leaf's shards joined), and the global norms
+one = first_step(0, 1, None, bin_fn)
+ranks = spawn(first_step, 2, (2, f"localhost:{free_port()}", bin_fn), timeout_s=600)
+grads = {}
+for name, want in one["grads"].items():
+    dim = shard_dim(name)
+    got = ([np.concatenate([r["grads"][name] for r in ranks], dim)] if dim is not None
+           else [r["grads"][name] for r in ranks])
+    grads[name] = max(float(np.abs(g - want).max()) for g in got) / float(np.abs(want).max())
+step = {"grads": grads, "norm": one["norm"], "rank_norms": [r["norm"] for r in ranks],
+        "loss": one["loss"], "rank_losses": [r["loss"] for r in ranks]}
+print(json.dumps({"params": params, "full_shapes": full_shapes, "first_step": step,
+                  **{k: {"training_losses": r.training_losses,
+                         "validation_losses": r.validation_losses,
+                         "kernel_launches": launches, "wall": wall}
+                     for k, (r, launches, wall) in runs.items()}}), file=sys.stderr)
+"""
 # phase 10e: call_bam through two Predictors on the one card
 SHARDED_SCRIPT = """
 import json, sys
@@ -286,6 +361,19 @@ print(json.dumps({"kernel_launches": launch_counts()}), file=sys.stderr)
 """
 # the train step split from 10c's trace (tools/torch_trace_split.py)
 DDP_RTOL = 1e-3
+# phase 10f's parameters against the unwrapped run's: elementwise within
+# rtol 1e-3, atol 1e-5 (tests/test_parallel.py's), but for a 1e-3 share of
+# each leaf at most. While a gradient is new Adam moves an element by about
+# lr * sign(g), so an element whose gradient sums to near 0 over the batch
+# moves up to 2 lr a step apart where two right reductions round it to
+# opposite signs; a wrong shard or gather puts most of a leaf outside
+PARAM_OUTSIDE_SHARE = 1e-3
+# 10f's first step, where Adam has not amplified a rounding yet: the global
+# norm before the clip (tests/test_torch_model_parallel.py's rtol), and each
+# leaf's gradient against its largest |element| (float32 sums over 10,000
+# rows in another order); a doubled or missing sum, or dropout masks that
+# differ between the ranks, move both by far more
+NORM_RTOL, GRAD_RTOL = 1e-5, 1e-4
 
 
 def card_line() -> str:
@@ -754,6 +842,56 @@ def pileup_batch(rs, n):
     return x, y
 
 
+def first_step(rank: int, world: int, address, bin_fn: str):
+    """Phase 10f's first train step as train_model takes it at seed 0 (its
+    initial parameters, the bin's first batch, data row 0's dropout
+    generator), float32, with the model's dropout on: the reported loss,
+    the global norm before the clip and each leaf's gradient before it
+    (this rank's shard of a split leaf). ``world`` 1: this process, no
+    mesh; else rank ``rank`` of a (1, world) mesh of gloo ranks on cuda:0
+    (a module-level function: the spawned ranks import it)."""
+    import torch.distributed as dist
+    from clair_tpu_torch.data.bins import load_bin
+    from clair_tpu_torch.models.clair import ClairNet, init_params
+    from clair_tpu_torch.params import L2_REGULARIZATION_LAMBDA, ModelConfig
+    from clair_tpu_torch.parallel.distributed import init_distributed
+    from clair_tpu_torch.parallel.mesh import make_mesh
+    from clair_tpu_torch.parallel.sharding import make_optimizer, make_train_step
+    from clair_tpu_torch.parallel.tensor_parallel import TensorParallel, shard_params
+
+    mesh = tp = None
+    if world > 1:
+        init_distributed(address, world, rank, "cuda", device="cuda:0", backend="gloo",
+                         timeout_s=600)
+        mesh = make_mesh(world, world, device_type="cuda")
+        tp = TensorParallel.of(mesh)
+    try:
+        config = ModelConfig(compute_dtype="float32")
+        params = init_params(torch.Generator().manual_seed(1), config)
+        if tp is not None:
+            params = shard_params(params, tp.index, tp.size)
+        model = ClairNet.from_jax(params, config, "cuda:0", tp)
+        optimizer = make_optimizer(dict(model.named_parameters()), "Adam", 1e-3)
+        seen, clip_and_update = {}, optimizer.step
+
+        def recording_step(tensor_parallel=None):
+            seen["grads"] = {k: p.grad.cpu().numpy() for k, p in model.named_parameters()}
+            seen["norm"] = clip_and_update(tensor_parallel).item()
+
+        optimizer.step = recording_step
+        dataset = load_bin(bin_fn)
+        blocks = range(TRAIN_BATCH // dataset.block_size)
+        x, y = (torch.from_numpy(np.concatenate([block(i, cast=False) for i in blocks]))
+                .to("cuda:0") for block in (dataset.x_block, dataset.y_block))
+        loss, _ = make_train_step(model, optimizer, mesh)(
+            x, y, torch.Generator(device="cuda:0").manual_seed(0), L2_REGULARIZATION_LAMBDA)
+        seen["loss"] = loss.item()
+        return seen
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
 def check_train_step(params, pair=STREAM_PAIR, **flags):
     """Phases 6 and 6b: three full-width Adam steps, card (kernels) vs CPU
     (plain), float32, every dropout rate 0, batch 512, with the kernel pair
@@ -1122,6 +1260,64 @@ def data_parallel(bin_fn: Path, card):
     print(f"  world size 1 (NCCL) losses equal the unwrapped run's; wall {wall:.2f} s "
           f"(process start to exit) on {card}")
     return gloo["kernel_launches"]
+
+
+def model_parallel(bin_fn: Path, card):
+    """Phase 10f: the model axis on the one card, dropout off, float32, on
+    phase 8's bin: two gloo ranks on cuda:0 on a (1, 2) mesh, each holding
+    half of L4 and of the stems, against the unwrapped train_model: loss
+    sums within DDP_RTOL and the same best epoch, the gathered parameters
+    at their full shapes, finite, and within rtol 1e-3, atol 1e-5 but for
+    Adam's outliers (PARAM_OUTSIDE_SHARE), and twice the single run's
+    launches (each rank runs the whole BiLSTM on the one stripe). Then the
+    first train step, dropout on, on the mesh against one process: the
+    global norm before the clip within NORM_RTOL on both ranks, each leaf's
+    gradient within GRAD_RTOL of its largest, the same loss within
+    DDP_RTOL."""
+    started = time.perf_counter()
+    report, wall, _ = run_process(["-c", MODEL_PARALLEL_SCRIPT, str(bin_fn), str(TRAIN_EPOCHS)],
+                                  900)
+    single, split = report["single"], report["model_2"]
+    for name in ("single", "model_2"):
+        run = report[name]
+        print(f"  {name}: training loss sums {run['training_losses']}, validation "
+              f"{run['validation_losses']}, kernel launches {run['kernel_launches']}, wall "
+              f"{run['wall']:.2f} s")
+    for key in ("training_losses", "validation_losses"):
+        got, want = [v for v, _ in split[key]], [v for v, _ in single[key]]
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        print(f"  (1, 2) mesh vs one process, {key}: max rel diff {rel:.3e}")
+        assert rel <= DDP_RTOL, (key, got, want)
+    best = [min(run["validation_losses"])[1] for run in (single, split)]
+    assert best[0] == best[1], best
+    assert report["full_shapes"], "the gathered parameters are not the full model's"
+    params = report["params"]
+    outside = {k: v[1] for k, v in params.items() if v[1]}
+    print(f"  gathered parameters vs one process: {sum(outside.values())} of "
+          f"{sum(v[0] for v in params.values())} elements outside rtol 1e-3, atol 1e-5 "
+          f"{outside} (at most a {PARAM_OUTSIDE_SHARE} share of each leaf); largest |diff| "
+          f"{max(v[2] for v in params.values()):.3e}")
+    assert all(v[3] for v in params.values()), params
+    assert all(count <= PARAM_OUTSIDE_SHARE * params[k][0] for k, count in outside.items()), params
+    step = report["first_step"]
+    norm_rel = [abs(n - step["norm"]) / step["norm"] for n in step["rank_norms"]]
+    loss_rel = [abs(v - step["loss"]) / abs(step["loss"]) for v in step["rank_losses"]]
+    worst = max(step["grads"], key=step["grads"].get)
+    print(f"  first step, dropout on, (1, 2) mesh vs one process: loss {step['rank_losses']} "
+          f"vs {step['loss']}; global norm before the clip {step['rank_norms']} vs "
+          f"{step['norm']} (rel diff {max(norm_rel):.3e}, limit {NORM_RTOL}); gradients: "
+          f"largest |diff| / the leaf's largest |gradient| {step['grads'][worst]:.3e} ({worst}, "
+          f"limit {GRAD_RTOL})")
+    assert step["norm"] > 5.0, step["norm"]  # the clip engages (GRADIENT_CLIP_NORM)
+    assert max(norm_rel) <= NORM_RTOL, step
+    assert step["grads"][worst] <= GRAD_RTOL, step["grads"]
+    assert max(loss_rel) <= DDP_RTOL, step
+    launches = split["kernel_launches"]
+    assert all((launches[k] > 0) == (k in STREAM_PAIR) for k in KERNELS), launches
+    assert launches == {k: 2 * v for k, v in single["kernel_launches"].items()}, launches
+    print(f"  best epoch {best[0]} on both; phase wall {time.perf_counter() - started:.2f} s "
+          f"(process {wall:.2f} s) on {card}")
+    return launches
 
 
 def sharded_calling(fasta, bam, tmp: Path, phase7_rows, card):
@@ -1742,6 +1938,10 @@ def main():
             new_paths["ShardedPredictor"] = sharded_calling(fasta, bam, tmp,
                                                             runs["bfloat16"][0], card)
             phase("10e call_bam through ShardedPredictor", t)
+
+            t = time.perf_counter()
+            new_paths["model axis, (1, 2) gloo ranks"] = model_parallel(bin_fn, card)
+            phase("10f the model axis on one card", t)
 
     t = time.perf_counter()
     from clair_tpu_torch.models.bilstm import bilstm_with_cell

@@ -16,11 +16,12 @@ own loop (``pipeline/train.py``, ``pipeline/lr_finder.py``) on CUDA.
 ``train --num_devices N`` spawns one process per card on this host;
 across hosts every process runs ``train`` with ``--coordinator_address``,
 ``--num_processes`` and its own ``--process_id`` (one process per GPU, not
-per host as in the JAX CLI). ``train --profile_dir`` writes a
-torch.profiler trace. ``--model_parallel > 1`` raises NotImplementedError,
-as does ``--no_stream_bilstm``, whose lax.scan BiLSTM the port keeps off
-the card. ``variables`` prints a checkpoint's parameters and needs no
-device.
+per host as in the JAX CLI). ``--model_parallel M`` splits the dense
+trunk over M of those processes (a mesh of N // M data rows of M; M must
+divide N and l4_num_units). ``train --profile_dir`` writes a
+torch.profiler trace. ``--no_stream_bilstm`` raises NotImplementedError:
+its lax.scan BiLSTM the port keeps off the card. ``variables`` prints a
+checkpoint's parameters and needs no device.
 
 The host commands need no model: the training-data chain
 (``get_truth``, ``extract_candidates``, ``create_tensor``,
@@ -590,12 +591,6 @@ def _load_dataset(args):
 
 
 def _refuse_unported_training_flags(args):
-    if args.model_parallel > 1:
-        from clair_tpu_torch.parallel.mesh import MODEL_PARALLEL_ITEM
-
-        raise NotImplementedError(
-            f"--model_parallel {args.model_parallel}: the model-axis split of the dense trunk "
-            f"is not ported (ROADMAP Queue 1, {MODEL_PARALLEL_ITEM})")
     if args.no_stream_bilstm:
         # the command line builds a bare ModelConfig, so the JAX flag falls
         # back to the lax.scan BiLSTM there
@@ -627,7 +622,10 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
                         help="data-parallel training over this many GPUs of this host: "
                              "one process per GPU, spawned by this command (NCCL)")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="not ported: only 1")
+                        help="split the dense trunk (L4 by its columns, the L5 stems by their "
+                             "rows) over this many of the processes: a mesh of N // M data "
+                             "rows of M, N the processes (--num_devices or --num_processes); "
+                             "M must divide N and l4_num_units")
     parser.add_argument("--coordinator_address", default=None,
                         help="multi-host training: host:port of process 0; run the SAME "
                              "command once per GPU on every host, each with its own "
@@ -664,6 +662,10 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
         # a process launched without the coordinator would silently train a
         # full independent run while its peers wait
         parser.error("--num_processes/--process_id require --coordinator_address")
+    from clair_tpu_torch.parallel.mesh import check_model_parallel
+
+    # before any process starts; one process is a mesh of one device
+    check_model_parallel(args.num_processes or args.num_devices or 1, args.model_parallel)
 
     from clair_tpu_torch.params import (
         CLR_MAX_LR, INITIAL_LEARNING_RATE, L2_REGULARIZATION_LAMBDA, MAX_EPOCH,
@@ -700,11 +702,12 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
         if args.coordinator_address:
             result, _ = train.train_rank(args.process_id, args.num_processes,
                                          args.coordinator_address, load_dataset, config,
-                                         args.profile_dir)
+                                         args.profile_dir, model_parallel=args.model_parallel)
         elif args.num_devices and args.num_devices > 1:
             result, rank_launches = train.train_on_devices(load_dataset, config,
                                                            args.num_devices,
-                                                           profile_dir=args.profile_dir)
+                                                           profile_dir=args.profile_dir,
+                                                           model_parallel=args.model_parallel)
             add_launches(spawned, rank_launches)
         else:
             with train.profiled(args.profile_dir, config.device):

@@ -29,11 +29,18 @@ promoted dtype explicitly.
 
 ``forward_activations`` runs the same layers, recording each one's output
 by name (the --activation_only dump), in float32 on the streaming layer.
+
+Training over a mesh with a model axis gives the module a tensor-parallel
+context (parallel/tensor_parallel.py): it then holds this rank's shard of
+L4 (its columns) and of the stems' weights (their rows), sums each stem's
+partial product over the model group before its bias, and draws L4's
+alpha-dropout mask at the full width, keeping its columns. Calling never
+takes one: the JAX package has no model axis there.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +54,9 @@ from clair_tpu_torch.ops.bilstm import bilstm_precomputed, promoted
 from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
 from clair_tpu_torch.ops.bilstm_train import bilstm_train
 
+if TYPE_CHECKING:
+    from clair_tpu_torch.parallel.tensor_parallel import TensorParallel
+
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (stem, head) pairs in output order: gt21, genotype, indel length 1 and 2
 _HEADS = (("l5_1", "head_gt21"), ("l5_2", "head_genotype"),
@@ -55,8 +65,11 @@ _HEADS = (("l5_1", "head_gt21"), ("l5_2", "head_genotype"),
 ACTIVATION_HEADS = ("gt21", "genotype", "indel_length_1", "indel_length_2")
 
 
-def param_shapes(config: ModelConfig = ModelConfig()) -> Dict:
-    """The parameter tree of clair_tpu.models.clair.init_params, as shapes."""
+def param_shapes(config: ModelConfig = ModelConfig(), model_parallel: int = 1) -> Dict:
+    """The parameter tree of clair_tpu.models.clair.init_params, as shapes;
+    with ``model_parallel`` > 1, one model column's shard of it (L4's
+    output and the stems' input cut by that factor,
+    parallel/tensor_parallel.py: shard_params)."""
     t, feat = config.no_of_positions, config.feature_dim
     h1, h2 = config.lstm1_num_units, config.lstm2_num_units
     l3_in = 2 * h2
@@ -68,7 +81,7 @@ def param_shapes(config: ModelConfig = ModelConfig()) -> Dict:
     def dense(in_dim, out_dim):
         return {"w": (in_dim, out_dim), "b": (out_dim,)}
 
-    l4, l5 = config.l4_num_units, config.l5_num_units
+    l4, l5 = config.l4_num_units // model_parallel, config.l5_num_units
     return {
         "lstm1": lstm(feat, h1),
         "lstm2": lstm(2 * h1, h2),
@@ -137,14 +150,15 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
-    """A state_dict as the JAX parameter pytree of float32 numpy arrays."""
+    """A state_dict as the JAX parameter pytree of float32 numpy arrays,
+    copies: on the CPU they do not follow the parameters' later updates."""
     tree: Dict = {}
     for key, value in state.items():
         *path, leaf = key.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = value.detach().to("cpu", torch.float32).numpy()
+        node[leaf] = value.detach().to("cpu", torch.float32).numpy().copy()
     return tree
 
 
@@ -152,18 +166,24 @@ class ClairNet(nn.Module):
     """The network, its parameters in the JAX layout. Calling runs it under
     ``inference_mode``; training differentiates ``forward_logits``."""
 
-    def __init__(self, config: ModelConfig = ModelConfig(), device=None):
+    def __init__(self, config: ModelConfig = ModelConfig(), device=None,
+                 tensor_parallel: Optional["TensorParallel"] = None):
         super().__init__()
         if config.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {config.compute_dtype!r} not in {sorted(COMPUTE_DTYPES)}")
         self.bilstm = select_bilstm(config)
         self.config = config
-        for name, shapes in param_shapes(config).items():
+        self.tensor_parallel = tensor_parallel
+        model_parallel = tensor_parallel.size if tensor_parallel is not None else 1
+        for name, shapes in param_shapes(config, model_parallel).items():
             self.add_module(name, _module_tree(shapes, device))
 
     @classmethod
-    def from_jax(cls, tree: Dict, config: ModelConfig = ModelConfig(), device=None) -> "ClairNet":
-        model = cls(config, device)
+    def from_jax(cls, tree: Dict, config: ModelConfig = ModelConfig(), device=None,
+                 tensor_parallel: Optional["TensorParallel"] = None) -> "ClairNet":
+        """A ClairNet holding ``tree``: the full parameters, or with
+        ``tensor_parallel`` this rank's shard of them."""
+        model = cls(config, device, tensor_parallel)
         model.load_state_dict(params_from_jax(tree))
         return model
 
@@ -208,13 +228,18 @@ class ClairNet(nn.Module):
         l3 = torch.einsum("btf,ftu->buf", *promoted(h, p["l3"]["w"]))
         l3 = selu(l3 + p["l3"]["b"].T[None])
         record("l3", l3)
-        l4 = selu(_dense(p["l4"], l3.reshape(b, -1)))
+        tp = self.tensor_parallel
+        l3 = l3.reshape(b, -1)
+        if tp is not None:
+            l3 = tp.copy_to_model(l3)
+        l4 = selu(_dense(p["l4"], l3))
         record("l4", l4)
         if train and config.l4_dropout_rate > 0:
-            l4 = alpha_dropout(generator, l4, config.l4_dropout_rate)
+            l4 = alpha_dropout(generator, l4, config.l4_dropout_rate,
+                               shard=(tp.index, tp.size) if tp is not None else None)
 
         def stem(name):
-            s = selu(_dense(p[name], l4))
+            s = selu(_dense(p[name], l4, tp.reduce_from_model if tp is not None else None))
             record(name, s)
             if train and config.l5_dropout_rate > 0:
                 s = alpha_dropout(generator, s, config.l5_dropout_rate)
@@ -254,9 +279,14 @@ def forward_activations(model_or_params, x: torch.Tensor,
     return acts
 
 
-def _dense(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def _dense(p: Dict, x: torch.Tensor, reduce: Optional[Callable] = None) -> torch.Tensor:
+    """x @ w + b; ``reduce``, where given, sums the row-parallel partial
+    product over the model group before the bias."""
     x, w = promoted(x, p["w"])
-    return x @ w + p["b"]
+    y = x @ w
+    if reduce is not None:
+        y = reduce(y)
+    return y + p["b"]
 
 
 def select_bilstm(config: ModelConfig) -> Callable:

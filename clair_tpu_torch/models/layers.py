@@ -10,7 +10,7 @@ samples.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -28,8 +28,12 @@ def selu(x: torch.Tensor) -> torch.Tensor:
     return SELU_SCALE * torch.where(x >= 0.0, x, SELU_ALPHA * torch.expm1(x))
 
 
-def _keep_mask(generator: torch.Generator, x: torch.Tensor, keep_prob: float) -> torch.Tensor:
-    return torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+def _keep_mask(generator: torch.Generator, x: torch.Tensor, keep_prob: float,
+               shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    index, count = shard or (0, 1)
+    width = x.shape[-1]
+    full = torch.rand((*x.shape[:-1], width * count), generator=generator, device=x.device)
+    return full[..., index * width:(index + 1) * width] < keep_prob
 
 
 def alpha_dropout(
@@ -38,15 +42,19 @@ def alpha_dropout(
     rate: float,
     fixed_point_mean: float = 0.0,
     fixed_point_var: float = 1.0,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Dropout for SELU networks: dropped units are set to alpha' and the
     output is affinely rescaled to keep the fixed point's mean and
-    variance."""
+    variance. ``shard`` (index, count): x is column block ``index`` of
+    ``count`` of a wider activation; the mask is drawn at the full width
+    and cut to that block, so that every holder of a block draws from one
+    mask (the model axis, parallel/tensor_parallel.py)."""
     if rate == 0.0:
         return x
     keep_prob = 1.0 - rate
     alpha_p = ALPHA_DROPOUT_VALUE
-    ret = torch.where(_keep_mask(generator, x, keep_prob), x, alpha_p)
+    ret = torch.where(_keep_mask(generator, x, keep_prob, shard), x, alpha_p)
     a = (fixed_point_var / (keep_prob * ((1 - keep_prob) * (alpha_p - fixed_point_mean) ** 2
                                          + fixed_point_var))) ** 0.5
     b = fixed_point_mean - a * (keep_prob * fixed_point_mean + (1 - keep_prob) * alpha_p)

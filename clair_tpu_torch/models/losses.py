@@ -72,9 +72,13 @@ def total_loss(
     task_weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0, 1.0),
     class_weights: Optional[Sequence[torch.Tensor]] = None,
     sample_weights: Optional[torch.Tensor] = None,
+    l2_raw: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted sum of the four task losses and L2. Returns (scalar, dict
-    of the unweighted components, with the JAX package's keys)."""
+    of the unweighted components, with the JAX package's keys). ``l2_raw``
+    is the L2 term without lambda where the caller computes it (a model
+    split over a model axis sums its shards' part over the axis); by
+    default ``l2_regularization(params)``."""
     spans = (GT21_SPAN, GENOTYPE_SPAN, LENGTH1_SPAN, LENGTH2_SPAN)
     logits = [lg.float() for lg in logits]
     y = y.float()  # int16 labels from the feed, cast on the device
@@ -92,7 +96,8 @@ def total_loss(
         task_losses = [focal_loss(lg, lb, sample_weights=sample_weights)
                        for lg, lb in zip(logits, labels)]
 
-    l2_raw = l2_regularization(params)
+    if l2_raw is None:
+        l2_raw = l2_regularization(params)
     l2 = l2_raw * l2_lambda
     weights = torch.tensor(task_weights, dtype=torch.float32, device=y.device)
     loss = torch.sum(weights * torch.stack([*task_losses, l2]))

@@ -14,21 +14,22 @@ multi-process run the single-process run:
 
 - Every process iterates the SAME epoch stream (same bin, same seed, the
   same block shuffle), pads each global batch to a multiple of the data
-  axis with sample weight 0, and takes its own row stripe of it
+  axis with sample weight 0, and takes its data row's stripe of it
   (``local_stripe``), so the global batch is the single-process one.
-- The gradients are summed over the processes inside ``backward()``
+- The gradients are summed over each data group inside ``backward()``
   (parallel/sharding.py), so the parameters never diverge. Dropout masks
-  differ by rank (a generator seeded seed + rank), as they must for the
-  stripes not to share masks.
+  differ by data row (a generator seeded seed + data index), as they must
+  for the stripes not to share masks, and are the same along a model
+  row, whose ranks compute the replicated layers together.
 - Every schedule decision is taken on all-reduced losses, so all processes
   agree on it; only process 0 writes checkpoints, and resume loads there
   and broadcasts (``broadcast_checkpoint``), so no shared filesystem is
   needed.
 
-The JAX package's ``make_global_array`` and ``host_replicated`` have no
-counterpart: under DistributedDataParallel every process holds the whole
-parameters and its own stripe as plain tensors, so there is no global
-array to assemble or gather.
+The JAX package's ``make_global_array`` has no counterpart: every process
+holds its own stripe as a plain tensor. Its ``host_replicated`` is
+parallel/tensor_parallel.py's ``gather_params`` where a model axis splits
+the parameters; without one every process holds them whole.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
+import socket
 import tempfile
 import time
 from typing import Callable, List, Optional, Sequence
@@ -108,9 +110,11 @@ def process_info() -> tuple:
 
 def check_multihost_mesh(mesh, num_processes: int) -> None:
     """Fail loud on a mesh the striped batch cannot serve: the mesh must
-    hold each of the ``num_processes`` ranks once (one device per rank), and
-    the ranks must ascend along 'data' (so each rank's rows form the stripe
-    local_stripe hands it)."""
+    hold each of the ``num_processes`` ranks once (one device per rank), the
+    data rows must ascend by rank (so each row's stripe is the one
+    local_stripe hands it), and a model axis must not cross hosts (every
+    process all-gathers the host names, where the model axis is wider than
+    1: a collective, so every process raises alike)."""
     grid = mesh.mesh
     names = list(mesh.mesh_dim_names or ())
     if "data" in names:
@@ -120,23 +124,33 @@ def check_multihost_mesh(mesh, num_processes: int) -> None:
         raise ValueError(
             f"the mesh must hold each of the {num_processes} processes once (one device per "
             f"rank); it holds ranks {ranks}")
-    along_data = grid.reshape(grid.shape[0], -1)[:, 0].tolist()
+    rows = grid.reshape(grid.shape[0], -1)
+    along_data = rows[:, 0].tolist()
     if along_data != sorted(along_data):
         raise ValueError(f"mesh data-rows must ascend by rank, got {along_data}")
+    if rows.shape[1] > 1:
+        hosts = [None] * num_processes
+        dist.all_gather_object(hosts, socket.gethostname())
+        for row in rows.tolist():
+            if len({hosts[r] for r in row}) != 1:
+                raise ValueError(f"model_parallel must not cross hosts: a data-row of the mesh "
+                                 f"spans hosts {sorted({hosts[r] for r in row})}")
 
 
-def local_stripe(n_rows: int, process_id: int, num_processes: int) -> slice:
-    """The contiguous row stripe of a global batch owned by this process.
-    n_rows must divide by num_processes (callers pad to the data-axis
+def local_stripe(n_rows: int, data_index: int, data_size: int) -> slice:
+    """The contiguous row stripe of a global batch owned by data row
+    ``data_index`` of ``data_size`` (every rank of a model row takes the
+    same). n_rows must divide by data_size (callers pad to the data-axis
     multiple)."""
-    assert n_rows % num_processes == 0, (n_rows, num_processes)
-    per = n_rows // num_processes
-    return slice(process_id * per, (process_id + 1) * per)
+    assert n_rows % data_size == 0, (n_rows, data_size)
+    per = n_rows // data_size
+    return slice(data_index * per, (data_index + 1) * per)
 
 
 def broadcast_checkpoint(init_checkpoint: str) -> tuple:
     """Multi-process resume: process 0 loads the checkpoint and broadcasts
-    (params, epoch) to every process. The others never open the file (their
+    (params, epoch) to every process, the full arrays (a rank holding a
+    model shard cuts its own: parallel/tensor_parallel.py, shard_params). The others never open the file (their
     ``init_checkpoint`` is ignored), so no shared filesystem is needed and
     the epoch counter cannot differ. A load failure on process 0 is
     broadcast as a flag, so that every process raises instead of the others

@@ -4,11 +4,23 @@ clair_tpu/parallel/sharding.py).
 The JAX step is a pure function of (params, opt_state); here the model owns
 its parameters and the optimizer its state, and a step updates both in
 place. Given a mesh (parallel/mesh.py: a DeviceMesh over the ranks of
-torch.distributed, one device each) the steps are data-parallel: each rank
-computes its stripe of the global batch, DistributedDataParallel sums the
-gradients over the mesh's 'data' group during ``backward()``, and the step
-returns the global batch's loss. The model-axis split of the dense trunk
-(--model_parallel > 1) is not ported (parallel/mesh.py refuses it).
+torch.distributed, one device each) each rank computes its data row's
+stripe of the global batch, DistributedDataParallel sums the gradients
+over its 'data' group during ``backward()``, and the step returns the
+global batch's loss. Where the mesh's 'model' axis is wider than 1, each
+model column is a DDP group of its own over its shard of the dense trunk
+(parallel/tensor_parallel.py), and:
+
+- the L2 term is the unsharded model's: its sharded part is summed over
+  the model group (gradient passed through), and the lead of each data
+  group alone adds it, so its gradient is added once per column;
+- the clip's global norm adds the model-group sum of the sharded
+  gradients' squares to the replicated gradients' squares: the unsharded
+  norm, the same on every rank;
+- the reported loss sums the task terms over 'data' only (every rank of a
+  model group computed them whole) with the L2 term counted once.
+
+Adam works element by element, so each rank updates its shard alone.
 """
 
 from __future__ import annotations
@@ -23,18 +35,27 @@ from torch.profiler import record_function
 
 from clair_tpu_torch.params import GRADIENT_CLIP_NORM, MOMENTUM
 from clair_tpu_torch.models.clair import ClairNet
-from clair_tpu_torch.models.losses import COMPONENTS, total_loss
+from clair_tpu_torch.models.losses import COMPONENTS, l2_regularization, total_loss
+from clair_tpu_torch.parallel.tensor_parallel import TensorParallel, shard_dim
 
 
-def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
+                         sharded: Iterable[torch.Tensor] = (),
+                         tensor_parallel: Optional[TensorParallel] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: when the global norm reaches
     ``max_norm``, every gradient becomes (g / norm) * max_norm. No 1e-6 in
     the divisor (torch.nn.utils.clip_grad_norm_ adds one), and no host
-    sync. Returns the norm."""
-    grads = list(grads)
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    sync. ``sharded``: the gradients of this rank's shards, whose squares
+    are summed over ``tensor_parallel``'s group, so that the norm is the
+    unsharded model's. Returns the norm."""
+    grads, sharded = list(grads), list(sharded)
+    squares = sum(torch.sum(g * g) for g in grads)
+    if sharded:
+        squares = squares + tensor_parallel.reduce_from_model(
+            sum(torch.sum(g * g) for g in sharded))
+    norm = torch.sqrt(squares)
     keep = norm < max_norm
-    for g in grads:
+    for g in grads + sharded:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
     return norm
 
@@ -47,7 +68,8 @@ class ClippedOptimizer:
     def __init__(self, named_params: Dict[str, torch.Tensor], optimizer_name: str,
                  learning_rate: float, momentum: float):
         # the JAX tree's leaf order (sorted paths), for the norm's sum
-        self.params = [named_params[k] for k in sorted(named_params)]
+        self.names = sorted(named_params)
+        self.params = [named_params[k] for k in self.names]
         if optimizer_name == "Adam":
             self.inner = torch.optim.Adam(self.params, lr=learning_rate,
                                           betas=(0.9, 0.999), eps=1e-8)
@@ -59,10 +81,16 @@ class ClippedOptimizer:
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
-        clip_by_global_norm_(grads, GRADIENT_CLIP_NORM)
+    def step(self, tensor_parallel: Optional[TensorParallel] = None) -> torch.Tensor:
+        """Clip and update; returns the global norm before the clip. With
+        ``tensor_parallel`` (the model's, where it holds a shard) the norm
+        is the unsharded model's."""
+        grads = [(p.grad, tensor_parallel is not None and shard_dim(k) is not None)
+                 for k, p in zip(self.names, self.params) if p.grad is not None]
+        norm = clip_by_global_norm_([g for g, s in grads if not s], GRADIENT_CLIP_NORM,
+                                    [g for g, s in grads if s], tensor_parallel)
         self.inner.step()
+        return norm
 
 
 def make_optimizer(named_params: Dict[str, torch.Tensor], optimizer_name: str = "Adam",
@@ -86,12 +114,23 @@ def loss_fn(model: ClairNet, x, y, generator: Optional[torch.Generator], l2_lamb
 
 def _loss(model: ClairNet, logits, y, l2_lambda, sample_weights):
     config = model.config
+    params = dict(model.named_parameters())
+    tp = model.tensor_parallel
+    l2_raw = None
+    if tp is not None:
+        # the unsharded model's L2: the shards' part summed over the model
+        # group, the replicated part counted once
+        sharded = {k: v for k, v in params.items() if shard_dim(k) is not None}
+        replicated = {k: v for k, v in params.items() if k not in sharded}
+        l2_raw = l2_regularization(replicated) + tp.reduce_from_model(
+            l2_regularization(sharded))
     return total_loss(
-        logits, y, dict(model.named_parameters()),
+        logits, y, params,
         loss_function=config.loss_function,
         l2_lambda=l2_lambda,
         task_weights=config.task_loss_weights,
         sample_weights=sample_weights,
+        l2_raw=l2_raw,
     )
 
 
@@ -123,9 +162,9 @@ def _sum_hook(group, bucket):
 
 
 class _DataParallel:
-    """What a step needs of a mesh: its 'data' group and whether this rank
-    leads it. The lead rank alone adds L2 (its gradient would otherwise be
-    summed once per rank)."""
+    """What a step needs of a mesh: this rank's 'data' group and whether
+    this rank leads it. The lead rank alone adds L2 (its gradient would
+    otherwise be summed once per rank)."""
 
     def __init__(self, mesh):
         self.group = mesh.get_group("data")
@@ -135,9 +174,11 @@ class _DataParallel:
         return l2_lambda if self.lead else 0.0
 
     def summed(self, loss, components):
-        """The global batch's loss and components: the sums over the ranks
-        of each rank's (L2 comes from the lead rank alone, and
-        l2_without_lambda, the same on every rank, is not summed)."""
+        """The global batch's loss and components: the sums over the data
+        group of each rank's (L2 comes from the lead rank alone, and
+        l2_without_lambda, the same on every rank, is not summed). The
+        ranks of a model group computed the same task terms, so the sum
+        runs over 'data' only."""
         values = torch.stack([loss.detach(), *(components[k].detach() for k in COMPONENTS)])
         dist.all_reduce(values, group=self.group)
         out = {k: v.detach() for k, v in components.items()}
@@ -153,8 +194,8 @@ def make_train_step(model: ClairNet, optimizer: ClippedOptimizer, mesh=None):
 
     With a mesh, x and y are this rank's stripe of the global batch and the
     returned loss is the global batch's. The gradients are summed over the
-    ranks inside ``backward()``, so the clip sees the global norm, and every
-    rank applies the same update."""
+    data group inside ``backward()``, so the clip sees the global norm, and
+    every rank of a model column applies the same update."""
     if mesh is None:
         forward, l2_of, reported = _TrainingForward(model), lambda l2: l2, _detached
     else:
@@ -175,7 +216,7 @@ def make_train_step(model: ClairNet, optimizer: ClippedOptimizer, mesh=None):
         with record_function("train_step.backward"):
             loss.backward()
         with record_function("train_step.optimizer"):
-            optimizer.step()
+            optimizer.step(model.tensor_parallel)
         return reported(loss, components)
 
     return step

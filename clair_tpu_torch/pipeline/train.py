@@ -25,14 +25,17 @@ versions. ``use_stream_bilstm`` acts as in the JAX loop: True sets
 ``use_pallas_stream_bilstm``, None and False leave the model's flags alone.
 
 With ``TrainingConfig.mesh`` (parallel/mesh.py) this process is one rank
-of a data-parallel run on ``TrainingConfig.device``: it reads the same
-epoch stream as every other rank, pads each global batch to a multiple of
-the data axis with sample weight 0 and steps on its stripe
-(parallel/distributed.py). The steps return the global batch's losses, so
-every rank takes the same schedule decisions. Process 0 alone writes
-checkpoints and runs the evaluation at the end; with more than one rank,
-resume goes through ``broadcast_checkpoint`` and the best epoch is restored
-from a snapshot kept in memory.
+of a parallel run on ``TrainingConfig.device``: it reads the same epoch
+stream as every other rank, pads each global batch to a multiple of the
+data axis with sample weight 0 and steps on its data row's stripe
+(parallel/distributed.py). Where the mesh has a model axis, the rank holds
+its shard of the dense trunk (parallel/tensor_parallel.py), and the full
+parameters are gathered over the model group wherever they are used: the
+best-epoch snapshot, the checkpoints, the result. The steps return the
+global batch's losses, so every rank takes the same schedule decisions.
+Process 0 alone writes checkpoints and runs the evaluation at the end; with
+more than one rank, resume goes through ``broadcast_checkpoint`` and the
+best epoch is restored from a snapshot kept in memory.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ from clair_tpu_torch.parallel.distributed import (
     local_stripe,
     process_info,
 )
+from clair_tpu_torch.parallel.tensor_parallel import TensorParallel, gather_params, shard_params
 from clair_tpu_torch.parallel.sharding import (
     make_eval_step,
     make_optimizer,
@@ -112,7 +116,8 @@ class TrainingConfig:
     hard_max_epochs: Optional[int] = None
     checkpoint_every: int = 1
     # a DeviceMesh over the ranks of torch.distributed (parallel/mesh.py):
-    # data-parallel training, this process being one rank on ``device``
+    # data- (and model-) parallel training, this process being one rank on
+    # ``device``
     mesh: Optional[object] = None
     seed: int = 0
     evaluate_at_end: bool = True
@@ -198,26 +203,32 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
     if config.use_stream_bilstm:
         model_config = dataclasses.replace(model_config, use_pallas_stream_bilstm=True)
     rank, world = 0, 1
-    shard = None
+    data_index = 0
+    shard = tp = None
     if config.mesh is not None:
         rank, world = process_info()
         check_multihost_mesh(config.mesh, world)
+        data_index = config.mesh.get_local_rank("data")
+        data_size = config.mesh.get_group("data").size()
+        tp = TensorParallel.of(config.mesh)
 
         def shard(x, y):
             # every rank holds the same GLOBAL batch (the same epoch stream)
-            # and steps on its row stripe: the global batch is the
+            # and steps on its data row's stripe: the global batch is the
             # single-process run's
             n = len(x)
-            padded = -(-n // world) * world
+            padded = -(-n // data_size) * data_size
             w = np.zeros(padded, dtype=np.float32)
             w[:n] = 1.0
             if padded != n:
                 x = np.concatenate([x, np.zeros((padded - n,) + x.shape[1:], x.dtype)])
                 y = np.concatenate([y, np.zeros((padded - n,) + y.shape[1:], y.dtype)])
-            rows = local_stripe(padded, rank, world)
+            rows = local_stripe(padded, data_index, data_size)
             return x[rows], y[rows], w[rows]
-    # dropout masks differ by rank, so that the stripes share none
-    generator = torch.Generator(device=device).manual_seed(config.seed + rank)
+    # dropout masks differ by data row, so that the stripes share none, and
+    # are the same along a model row, whose ranks compute its replicated
+    # layers together
+    generator = torch.Generator(device=device).manual_seed(config.seed + data_index)
 
     if config.init_checkpoint is not None and world > 1:
         # checkpoints are written by process 0 only: it loads and broadcasts
@@ -230,7 +241,15 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
     else:
         params = init_params(torch.Generator().manual_seed(config.seed + 1), model_config)
         start_epoch = 1
-    model = ClairNet.from_jax(params, model_config, device)
+    if tp is not None:
+        params = shard_params(params, tp.index, tp.size)
+    model = ClairNet.from_jax(params, model_config, device, tp)
+
+    def full_params():
+        # a collective over the model group where the model is a shard
+        if tp is not None:
+            return gather_params(model, config.mesh)
+        return params_to_jax(model.state_dict())
 
     optimizer = make_optimizer(dict(model.named_parameters()), model_config.optimizer_name,
                                config.learning_rate)
@@ -313,14 +332,15 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
         if world > 1 and config.restore_best and (
             best_snapshot is None or val_loss_sum < best_snapshot[0]
         ):
-            best_snapshot = (val_loss_sum, epoch, params_to_jax(model.state_dict()))
-        if config.output_prefix is not None and rank == 0 and (
+            best_snapshot = (val_loss_sum, epoch, full_params())
+        # process 0's model row gathers the parameters; process 0 writes them
+        if config.output_prefix is not None and data_index == 0 and (
             epoch % config.checkpoint_every == 0 or is_last
         ):
-            save_checkpoint(
-                checkpoint_path(config.output_prefix, epoch), params_to_jax(model.state_dict()),
-                extra={"epoch": epoch, "learning_rate": learning_rate},
-            )
+            saved_params = full_params()
+            if rank == 0:
+                save_checkpoint(checkpoint_path(config.output_prefix, epoch), saved_params,
+                                extra={"epoch": epoch, "learning_rate": learning_rate})
 
         if config.schedule == "fixed" or clr is not None:
             if epoch >= config.max_epochs:
@@ -343,7 +363,7 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
 
     logger.info("[INFO] Training time elapsed: %.2f s", time.time() - training_start)
 
-    params = params_to_jax(model.state_dict())
+    params = full_params()
     if world > 1:
         # no shared filesystem: the best epoch comes from the snapshot, and
         # every rank ends with the same parameters
@@ -382,15 +402,19 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
 def train_on_devices(load_dataset: Callable[[], BinDataset], config: TrainingConfig, n: int,
                      *, profile_dir: Optional[str] = None, backend: Optional[str] = None,
                      devices: Optional[Sequence[str]] = None,
-                     timeout_s: Optional[float] = None) -> Tuple[TrainResult, dict]:
+                     timeout_s: Optional[float] = None,
+                     model_parallel: int = 1) -> Tuple[TrainResult, dict]:
     """train_model over n devices of this host, one rank process each
     (spawned), meeting at a free localhost port: rank r on cuda:r, or on
-    ``devices[r]``, or on the CPU when config.device is the CPU. Every rank
-    loads its dataset with ``load_dataset`` (a picklable callable). Returns
-    rank 0's TrainResult and the ranks' kernel launches, summed. Fewer
-    visible GPUs than n raise. ``backend`` (default NCCL on CUDA, gloo on
-    the CPU) and ``timeout_s`` (the ranks' wall-clock limit and their
-    collectives' timeout) serve tests and the smoke test."""
+    ``devices[r]``, or on the CPU when config.device is the CPU, on a mesh
+    of (n // model_parallel, model_parallel). Every rank loads its dataset
+    with ``load_dataset`` (a picklable callable). Returns rank 0's
+    TrainResult and the ranks' kernel launches, summed. Fewer visible GPUs
+    than n raise; a model_parallel that does not divide n raises in the
+    ranks (make_mesh).
+    ``backend`` (default NCCL on CUDA, gloo on the CPU) and ``timeout_s``
+    (the ranks' wall-clock limit and their collectives' timeout) serve
+    tests and the smoke test."""
     from clair_tpu_torch.ops import add_launches
     from clair_tpu_torch.parallel.distributed import free_port, spawn
     from clair_tpu_torch.parallel.mesh import visible_devices
@@ -398,7 +422,7 @@ def train_on_devices(load_dataset: Callable[[], BinDataset], config: TrainingCon
     devices = devices or visible_devices(n, _device_type(config.device))
     address = f"localhost:{free_port()}"
     results = spawn(train_rank, n, (n, address, load_dataset, config, profile_dir, backend,
-                                    devices, timeout_s), timeout_s=timeout_s)
+                                    devices, timeout_s, model_parallel), timeout_s=timeout_s)
     launches: dict = {}
     for _, rank_launches in results:
         add_launches(launches, rank_launches)
@@ -408,11 +432,13 @@ def train_on_devices(load_dataset: Callable[[], BinDataset], config: TrainingCon
 def train_rank(rank: int, world: int, address: str, load_dataset: Callable[[], BinDataset],
                config: TrainingConfig, profile_dir: Optional[str] = None,
                backend: Optional[str] = None, devices: Optional[Sequence[str]] = None,
-               timeout_s: Optional[float] = None) -> Tuple[TrainResult, dict]:
-    """One rank of a data-parallel run: join the group at ``address``
+               timeout_s: Optional[float] = None,
+               model_parallel: int = 1) -> Tuple[TrainResult, dict]:
+    """One rank of a parallel run: join the group at ``address``
     (parallel/distributed.py: init_distributed), build the mesh over every
-    rank, train on this rank's device, leave the group. Returns
-    (TrainResult, this process's kernel launches during the run)."""
+    rank (``model_parallel`` wide on its model axis), train on this rank's
+    device, leave the group. Returns (TrainResult, this process's kernel
+    launches during the run)."""
     import torch.distributed as dist
 
     from clair_tpu_torch.ops import launch_counts, launches_since
@@ -427,8 +453,8 @@ def train_rank(rank: int, world: int, address: str, load_dataset: Callable[[], B
                               device=devices[rank] if devices else None,
                               timeout_s=timeout_s or DEFAULT_TIMEOUT_S)
     try:
-        config = dataclasses.replace(config, mesh=make_mesh(world, device_type=device_type),
-                                     device=str(device))
+        mesh = make_mesh(world, model_parallel, device_type=device_type)
+        config = dataclasses.replace(config, mesh=mesh, device=str(device))
         dataset = load_dataset()
         before = launch_counts()
         with profiled(profile_dir, config.device, f"rank{rank}"):

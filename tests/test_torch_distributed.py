@@ -174,10 +174,8 @@ def test_multi_host_flags_are_checked_before_anything_runs():
 
 
 def test_make_mesh_refusals():
-    """model_parallel > 1 names its ROADMAP item; no mesh without a process
-    group; a mesh must hold every rank, no fewer and no more."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, '--model_parallel > 1'"):
-        make_mesh(2, model_parallel=2)
+    """No mesh without a process group; a mesh must hold every rank, no
+    fewer and no more, with or without a model axis."""
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="initialised torch.distributed process group"):
         make_mesh(1, device_type="cpu")
@@ -186,6 +184,8 @@ def test_make_mesh_refusals():
         assert process_info() == (0, 1)
         with pytest.raises(ValueError, match="needs 2 devices but only 1 are visible"):
             make_mesh(2, device_type="cpu")
+        with pytest.raises(ValueError, match="needs 2 devices but only 1 are visible"):
+            make_mesh(2, model_parallel=2, device_type="cpu")
         mesh = make_mesh(device_type="cpu")
         assert mesh.mesh_dim_names == ("data", "model") and tuple(mesh.shape) == (1, 1)
         check_multihost_mesh(mesh, 1)

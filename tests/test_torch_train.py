@@ -318,13 +318,14 @@ def test_train_command_on_a_jax_written_bin(tmp_path, capsys):
     assert extra["epoch"] == 1 and params["l3"]["w"].shape == (256, 33, 30)
 
 
-# what each refused flag set raises: the unported model axis and the
-# lax.scan BiLSTM name their ROADMAP item; more GPUs than this machine has
-# raise (no fallback to fewer); the multi-process flags come together
+# what each refused flag set raises: the lax.scan BiLSTM names its ROADMAP
+# item; more GPUs than this machine has raise (no fallback to fewer); a
+# model axis must divide the devices, before any process starts; the
+# multi-process flags come together
 REFUSED = {
     "--num_devices": (RuntimeError, "needs 2 CUDA devices"),
     "--coordinator_address": (SystemExit, None),
-    "--model_parallel": (NotImplementedError, "ROADMAP Queue 1, '--model_parallel > 1'"),
+    "--model_parallel": (ValueError, "must divide"),
     "--num_processes": (SystemExit, None),
     "--no_stream_bilstm": (NotImplementedError, "ROADMAP"),
 }
@@ -332,7 +333,8 @@ REFUSED = {
 
 @pytest.mark.parametrize("flags", [
     ["--num_devices", "2"], ["--coordinator_address", "localhost:1"],
-    ["--model_parallel", "2"], ["--num_processes", "2"], ["--no_stream_bilstm"],
+    ["--model_parallel", "3", "--num_devices", "2"], ["--num_processes", "2"],
+    ["--no_stream_bilstm"],
 ])
 def test_train_command_refuses_what_is_not_ported(flags):
     if flags[0] == "--num_devices" and torch.cuda.device_count() >= 2:
