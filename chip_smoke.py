@@ -84,6 +84,17 @@ Phases, each printing its results and seconds:
         1 and 2 only); then the first train step with dropout on, on the
         mesh and in one process: the global norm before the clip within
         rtol 1e-5, each leaf's gradient within 1e-4 of its largest
+   10g. the scan BiLSTM (the JAX package's lax.scan, models/bilstm.py:
+        bilstm_scan): each layer at full width on the card against the
+        same function on the CPU, forward and gradients, at B = 512 (the
+        hoisted step form) and 10,000 (the fused form, its steps
+        recomputed in the backward), float32 and bfloat16; the float32
+        scan against row 1 at B = 512; ``train --no_stream_bilstm`` on
+        phase 8's bin in bfloat16 and float32 (finite losses that fall, no
+        kernel launching) beside phase 8's default runs (rows 1 and 2
+        launching); three full-width Adam steps of the scan, card vs CPU;
+        its train step at B = 10,000 and its peak memory, beside the
+        streaming pair's step
 9. times (CUDA events after warm-up) beside the card's name and power limit;
    the model's calling forward at B = 512 in both dtypes, streaming and
    under use_pallas_bilstm
@@ -95,7 +106,7 @@ Phases, each printing its results and seconds:
        work) and the time of the one PyTorch call that computes the same
        function, where there is one (torch.nn.LSTM, cuDNN, TF32 off)
 
-Each run of phases 7, 7b, 7c, 8, 8b, 8c and 10a-10f runs in a process of
+Each run of phases 7, 7b, 7c, 8, 8b, 8c and 10a-10g runs in a process of
 its own, so the launch counts it reports start from 0 just before it and
 are read just after it; the processes a run spawns (7c's pool workers,
 10d's and 10f's ranks) return their counts, which the run adds to its own. 9c sets
@@ -179,6 +190,18 @@ FWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 32, 128),
 # is rounded to a 2**-8 step)
 BWD_REL_TOL, BF16_COSINE, BF16_REL_TOL = 3e-4, 0.99, 1e-2
 FORWARD_TOL = 1e-4          # probabilities, card vs CPU, float32
+# phase 10g: the scan on the card against the scan on the CPU, each layer's
+# output and every gradient: float32 within SCAN_F32_REL of the array's
+# largest |value| (sums in another order); bfloat16 within the bounds of
+# tests/test_torch_scan_bilstm.py (outputs: max and mean |difference|;
+# gradients: of the largest |value|)
+SCAN_F32_REL = 1e-5
+SCAN_BF16_MAX, SCAN_BF16_MEAN, SCAN_BF16_GRAD_REL = 2.0 ** -6, 2.0 ** -11, 2.0 ** -5
+# the step forms: hoisted at the calling batch, fused at the training batch
+SCAN_BATCHES = (512, 10_000)
+# the float32 scan against row 1 at B = 512: the JAX package's bound
+# between its two step forms (tests/test_model.py:145-162)
+SCAN_ROW1_ATOL, SCAN_ROW1_RTOL = 2e-4, 1e-4
 STEP_RTOL = 3e-4            # train-step losses, card vs CPU, float32
 RECALL_FLOOR = PRECISION_FLOOR = 0.9
 # the simulated ONT genome of phases 7 to 8c, and phase 7c's windows on it
@@ -892,11 +915,11 @@ def first_step(rank: int, world: int, address, bin_fn: str):
             dist.destroy_process_group()
 
 
-def check_train_step(params, pair=STREAM_PAIR, **flags):
-    """Phases 6 and 6b: three full-width Adam steps, card (kernels) vs CPU
-    (plain), float32, every dropout rate 0, batch 512, with the kernel pair
-    the ModelConfig ``flags`` select; only that pair launches, 6 + 6
-    times."""
+def check_train_step(params, pair=STREAM_PAIR, scan=False, **flags):
+    """Phases 6, 6b and 10g: three full-width Adam steps, card (kernels) vs
+    CPU (plain), float32, every dropout rate 0, batch 512, with the kernel
+    pair the ModelConfig ``flags`` select (or, with ``scan``, the scan
+    BiLSTM on both); only that pair launches, 6 + 6 times."""
     from clair_tpu_torch.models.clair import ClairNet, params_to_jax
     from clair_tpu_torch.parallel.sharding import make_optimizer, make_train_step
     from clair_tpu_torch.params import ModelConfig
@@ -907,7 +930,7 @@ def check_train_step(params, pair=STREAM_PAIR, **flags):
     runs = {}
     before = kernel_counts()
     for device in ("cuda", "cpu"):
-        model = ClairNet.from_jax(params, config, device)
+        model = ClairNet.from_jax(params, config, device, scan=scan)
         step = make_train_step(model, make_optimizer(dict(model.named_parameters()), "Adam", 1e-3))
         xd, yd = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
         generator = torch.Generator(device=device)
@@ -918,7 +941,7 @@ def check_train_step(params, pair=STREAM_PAIR, **flags):
     card, cpu = runs["cuda"][0], runs["cpu"][0]
     assert all(math.isfinite(v) for v in card)
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    print(f"  train step card vs CPU {flags or ''}, losses {card} vs {cpu}, "
+    print(f"  train step card vs CPU {flags or ('scan' if scan else '')}, losses {card} vs {cpu}, "
           f"max rel diff {rel:.2e}; launches {launched}")
     assert rel <= STEP_RTOL, (card, cpu)
 
@@ -1320,6 +1343,129 @@ def model_parallel(bin_fn: Path, card):
     return launches
 
 
+def scan_layers_vs_cpu(dev):
+    """Phase 10g, first part: each layer of the scan BiLSTM at full width
+    (lstm1 32 -> 128, lstm2 256 -> 128) on the card against the same
+    function on the CPU, at each SCAN_BATCHES batch (the hoisted and the
+    fused step form), in float32 and bfloat16: the output and the gradients
+    of sum(out * weights) for the input and every parameter (float32
+    masters cast at use, as ClairNet casts them). Returns the float32
+    layers' parameters and the B = 512 inputs, on the card, for the
+    comparison with row 1."""
+    from clair_tpu_torch.models.bilstm import bilstm_scan
+
+    def run(p, x, weights, dtype, device):
+        # fresh leaves each run (.to on the CPU would return the tensor itself)
+        leaves = {d: {k: v.detach().to(device).requires_grad_() for k, v in q.items()}
+                  for d, q in p.items()}
+        xd = x.detach().to(device).requires_grad_()
+        out = bilstm_scan({d: {k: v.to(dtype) for k, v in q.items()} for d, q in leaves.items()},
+                          xd.to(dtype))
+        (out.float() * weights.to(device)).sum().backward()
+        grads = {"x": xd.grad, **{f"{d}.{k}": v.grad for d, q in leaves.items()
+                                  for k, v in q.items()}}
+        return out.detach().float().cpu(), {k: g.cpu() for k, g in grads.items()}
+
+    kept = {}
+    for layer, feat in LAYERS:
+        p = lstm_params(np.random.RandomState(feat + 1), feat, HIDDEN, "cpu")
+        generator = torch.Generator().manual_seed(feat)
+        for batch in SCAN_BATCHES:
+            x = torch.randn(batch, T_LEN, feat, generator=generator)
+            weights = torch.randn(batch, T_LEN, 2 * HIDDEN, generator=generator)
+            for dtype in (torch.float32, torch.bfloat16):
+                started = time.perf_counter()
+                card_out, card_grads = run(p, x, weights, dtype, dev)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - started
+                started = time.perf_counter()
+                cpu_out, cpu_grads = run(p, x, weights, dtype, "cpu")
+                cpu_s = time.perf_counter() - started
+                diff = (card_out - cpu_out).abs()
+                rel = {k: ((g - cpu_grads[k]).abs().max() / cpu_grads[k].abs().max()).item()
+                       for k, g in card_grads.items()}
+                worst = max(rel, key=rel.get)
+                out_rel = (diff.max() / cpu_out.abs().max()).item()
+                print(f"  scan {layer} B={batch} {str(dtype)[6:]} card vs CPU: output max|d| "
+                      f"{diff.max().item():.3e} (of scale {out_rel:.3e}), mean "
+                      f"{diff.mean().item():.3e}; gradients max|d| of scale {rel[worst]:.3e} "
+                      f"({worst}); card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+                assert torch.isfinite(card_out).all()
+                if dtype == torch.float32:
+                    assert out_rel <= SCAN_F32_REL and rel[worst] <= SCAN_F32_REL, (out_rel, rel)
+                else:
+                    assert diff.max() <= SCAN_BF16_MAX and diff.mean() < SCAN_BF16_MEAN, diff
+                    assert rel[worst] <= SCAN_BF16_GRAD_REL, rel
+                if batch == CALL_BATCH and dtype == torch.float32:
+                    kept[layer] = ({d: {k: v.to(dev) for k, v in q.items()} for d, q in p.items()},
+                                   x.to(dev))
+    return kept
+
+
+def scan_bilstm(params, bin_fn: Path, dev, trains, card):
+    """Phase 10g: the scan BiLSTM on the card. Its layers against the CPU
+    (scan_layers_vs_cpu); the float32 scan against row 1 at B = 512 within
+    SCAN_ROW1_ATOL + SCAN_ROW1_RTOL; ``train --no_stream_bilstm`` on phase
+    8's bin in bfloat16 and float32 (phase 8's checks, no kernel launching)
+    beside phase 8's default runs, where rows 1 and 2 launched; three Adam
+    steps of the scan, card vs CPU (STEP_RTOL); the scan's train step at B =
+    10,000 and its peak memory beside the streaming pair's, in turns.
+    Returns the bfloat16 run's launches."""
+    from clair_tpu_torch.models.bilstm import bilstm_scan
+    from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
+
+    started = time.perf_counter()
+    for layer, (p, x) in scan_layers_vs_cpu(dev).items():
+        with torch.no_grad():
+            got, row1 = bilstm_scan(p, x), bilstm_stream(p, x)
+        err = (got - row1).abs()
+        excess = (err - SCAN_ROW1_RTOL * row1.abs()).max().item()
+        print(f"  scan vs row 1, {layer} B={CALL_BATCH} float32: max|d| {err.max().item():.3e} "
+              f"(limit {SCAN_ROW1_ATOL} + {SCAN_ROW1_RTOL}*|row 1|)")
+        assert excess <= SCAN_ROW1_ATOL, excess
+    print(f"  layers: {time.perf_counter() - started:.2f} s")
+
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=bin_fn.parent) as out_dir:
+        def cli_run(dtype):
+            prefix = Path(out_dir) / f"model_scan_{dtype}"
+            flags = ["--train_compute_dtype", "float32"] if dtype == "float32" else []
+            return train(prefix, lambda: run_port(
+                ["train", "--bin_fn", str(bin_fn), "--ochk_prefix", str(prefix),
+                 "--maxEpoch", str(TRAIN_EPOCHS), "--no_stream_bilstm", *flags], 600), pair=())
+
+        # the two runs at once, each in its process, sharing the card
+        dtypes = ("bfloat16", "float32")
+        with ThreadPoolExecutor(len(dtypes)) as pool:
+            results = dict(zip(dtypes, pool.map(cli_run, dtypes)))
+        for dtype, (report, wall, top, epochs) in results.items():
+            default = trains[dtype][0]["kernel_launches"]
+            print(f"  train --no_stream_bilstm {dtype}: validation loss sums "
+                  f"{report['validation_losses']}, training loss sums "
+                  f"{report['training_losses']}, kernel launches {report['kernel_launches']} "
+                  f"(phase 8's default run: {default}), wall {wall:.2f} s (process start to "
+                  f"exit, the two runs at once); {top}; {epochs}")
+            assert all(default[k] > 0 for k in STREAM_PAIR), default
+            runs[dtype] = report["kernel_launches"]
+
+    check_train_step(params, pair=(), scan=True)
+    print(f"train step B={TRAIN_BATCH} on {card} (host clock, mean of 5 synchronized steps "
+          f"after one, in turns; the step's peak: torch.cuda.max_memory_allocated over those "
+          f"steps above what was allocated before them):")
+    for dtype in ("bfloat16", "float32"):
+        steps = {"streaming pair": full_width_step(params, dev, dtype),
+                 "scan": full_width_step(params, dev, dtype, scan=True)}
+        for name in ("streaming pair", "scan", "scan", "streaming pair"):
+            step_ms, rate, peak = step_times(steps[name])
+            print(f"  {dtype} {name}: {step_ms:.2f} ms, {rate:.0f} samples/s, peak "
+                  f"{peak / 2 ** 30:.2f} GiB")
+        for name, run in steps.items():
+            busy, kernels = step_device_time(run)
+            print(f"  {dtype} {name}: device {busy:.2f} ms a step in {kernels:.0f} kernel "
+                  f"launches (torch.profiler, kernel times summed over 5 steps)")
+    return runs["bfloat16"]
+
+
 def sharded_calling(fasta, bam, tmp: Path, phase7_rows, card):
     """Phase 10e: call_bam through ShardedPredictor on cuda:0 twice: phase
     7's bfloat16 rows; then ``call_bam --num_devices N`` with N one more
@@ -1392,28 +1538,59 @@ def train(prefix: Path, run, pair=STREAM_PAIR):
     return report, wall, top, epochs
 
 
-def train_step_times(params, dev, dtype, **flags):
-    """ms per full-width train step at batch 10,000 (host clock around
-    synchronized steps, after a warm-up step)."""
+def full_width_step(params, dev, dtype, scan=False, **flags):
+    """A full-width train step at batch 10,000 on fixed inputs, as a
+    callable of no argument, after one warm-up step."""
     from clair_tpu_torch.models.clair import ClairNet
     from clair_tpu_torch.parallel.sharding import make_optimizer, make_train_step
     from clair_tpu_torch.params import TRAIN_BATCH_SIZE, ModelConfig
 
-    model = ClairNet.from_jax(params, ModelConfig(compute_dtype=dtype, **flags), dev)
+    model = ClairNet.from_jax(params, ModelConfig(compute_dtype=dtype, **flags), dev, scan=scan)
     step = make_train_step(model, make_optimizer(dict(model.named_parameters()), "Adam", 1e-3))
     x, y = pileup_batch(np.random.RandomState(14), TRAIN_BATCH_SIZE)
     xd = torch.from_numpy(x.astype(np.int16)).to(dev)
     yd = torch.from_numpy(y.astype(np.int16)).to(dev)
     generator = torch.Generator(device=dev).manual_seed(0)
-    step(xd, yd, generator, 0.005)
+
+    def run():
+        step(xd, yd, generator, 0.005)
+
+    run()
     torch.cuda.synchronize()
-    iters = 5
+    return run
+
+
+def step_times(run, iters=5):
+    """ms per call of ``run``, a full-width train step at batch 10,000 (host
+    clock around synchronized calls), samples/s, and the step's peak of
+    device memory: the most allocated during the calls above what was
+    allocated before them (bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     started = time.perf_counter()
     for _ in range(iters):
-        step(xd, yd, generator, 0.005)
+        run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - started) / iters * 1e3
-    return ms, TRAIN_BATCH_SIZE / ms * 1e3
+    return ms, TRAIN_BATCH / ms * 1e3, torch.cuda.max_memory_allocated() - resident
+
+
+def step_device_time(run, iters=5):
+    """run()'s device time (torch.profiler's kernel times summed) and its
+    kernel launches, per call, over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    us = kernels = 0
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            us += e.self_device_time_total
+            kernels += e.count
+    return us / 1e3 / iters, kernels / iters
 
 
 # the backwards' kernels by part, from substrings of their names (the rest
@@ -1565,7 +1742,7 @@ def new_kernel_times(params, dev, ms, plain_ms):
     print(f"  bilstm2 B=512 f32: kernel {ms['bilstm2']:.4f} ms, plain {plain_ms['bilstm2']:.4f} ms")
     for name, flags in (("streaming pair", {}),
                         ("train pair", {"use_pallas_train_bilstm": True})):
-        step_ms, rate = train_step_times(params, dev, "float32", **flags)
+        step_ms, rate, _ = step_times(full_width_step(params, dev, "float32", **flags))
         print(f"  train step B=10000 float32, {name}: {step_ms:.2f} ms, {rate:.0f} samples/s "
               f"(host clock, mean of 5 synchronized steps)")
 
@@ -1943,6 +2120,10 @@ def main():
             new_paths["model axis, (1, 2) gloo ranks"] = model_parallel(bin_fn, card)
             phase("10f the model axis on one card", t)
 
+            t = time.perf_counter()
+            new_paths["train --no_stream_bilstm"] = scan_bilstm(params, bin_fn, dev, trains, card)
+            phase("10g the scan BiLSTM", t)
+
     t = time.perf_counter()
     from clair_tpu_torch.models.bilstm import bilstm_with_cell
     from clair_tpu_torch.models.clair import ClairNet
@@ -2006,7 +2187,7 @@ def main():
                 fwd = cuda_ms(lambda: model(_device_input(xu)))
             print(f"  forward B=512 {dtype} {kernel}: {fwd:.4f} ms, {512 / fwd * 1e3:.0f} tensors/s")
     for dtype in ("bfloat16", "float32"):
-        step_ms, rate = train_step_times(params, dev, dtype)
+        step_ms, rate, _ = step_times(full_width_step(params, dev, dtype))
         print(f"  train step B=10000 {dtype}: {step_ms:.2f} ms, {rate:.0f} samples/s "
               f"(host clock, mean of 5 synchronized steps)")
     for dtype, (rows, _, wall, sites) in runs.items():

@@ -19,9 +19,10 @@ across hosts every process runs ``train`` with ``--coordinator_address``,
 per host as in the JAX CLI). ``--model_parallel M`` splits the dense
 trunk over M of those processes (a mesh of N // M data rows of M; M must
 divide N and l4_num_units). ``train --profile_dir`` writes a
-torch.profiler trace. ``--no_stream_bilstm`` raises NotImplementedError:
-its lax.scan BiLSTM the port keeps off the card. ``variables`` prints a
-checkpoint's parameters and needs no device.
+torch.profiler trace. ``--no_stream_bilstm`` trains on the JAX package's
+lax.scan BiLSTM (models/bilstm.py:bilstm_scan) instead of the streaming
+kernel pair. ``variables`` prints a checkpoint's parameters and needs no
+device.
 
 The host commands need no model: the training-data chain
 (``get_truth``, ``extract_candidates``, ``create_tensor``,
@@ -590,17 +591,6 @@ def _load_dataset(args):
     return build_bin_from_tensors(args.tensor_fn, args.var_fn, args.bed_fn)
 
 
-def _refuse_unported_training_flags(args):
-    if args.no_stream_bilstm:
-        # the command line builds a bare ModelConfig, so the JAX flag falls
-        # back to the lax.scan BiLSTM there
-        raise NotImplementedError(
-            "--no_stream_bilstm selects the JAX package's lax.scan BiLSTM, which in the "
-            "port is the plain PyTorch version: it serves CPU tensors and is kept off "
-            "the card (ROADMAP, the kernel rule). The other kernels are selected from "
-            "Python by ModelConfig flags (use_pallas_train_bilstm, use_pallas_bilstm)")
-
-
 def cmd_train(argv, schedule="adaptive", device="cuda"):
     """The JAX package's ``train`` (and, with schedule "clr",
     ``train_clr``), with the same flags, on ``device`` (the command line's
@@ -648,9 +638,10 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
                         help="matmul/activation dtype for the train step "
                              "(master weights, loss and cell state stay "
                              "float32; default: TrainingConfig default)")
-    parser.add_argument("--no_stream_bilstm", action="store_true")
+    parser.add_argument("--no_stream_bilstm", action="store_true",
+                        help="force the lax.scan BiLSTM instead of the "
+                             "streaming-grid train kernel")
     args = parser.parse_args(argv)
-    _refuse_unported_training_flags(args)
     logging.basicConfig(format="%(message)s", level=logging.INFO)
     if args.coordinator_address:
         if args.num_processes is None or args.process_id is None:
@@ -695,6 +686,7 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
         device=device,
         **({"train_compute_dtype": args.train_compute_dtype}
            if args.train_compute_dtype else {}),
+        **({"use_stream_bilstm": False} if args.no_stream_bilstm else {}),
     )
     load_dataset = functools.partial(_load_dataset, args)
     report = {}

@@ -1,19 +1,29 @@
-"""Plain PyTorch bidirectional LSTM (port of clair_tpu/models/bilstm.py).
+"""Plain PyTorch bidirectional LSTMs (port of clair_tpu/models/bilstm.py).
 
-This is the reference the CUDA kernel (ops/bilstm_stream.py) is held
-against, and the path a CPU tensor takes. It computes what the TPU's
-streaming kernel computes:
+Two functions with two jobs, sharing the layout: gate order (i, f, g, o),
+one bias, no extra forget bias (the cudnn layout of published Clair
+checkpoints); the reversed direction stacked on the batch axis, each
+direction with its own W/U/b, and its outputs re-reversed before the
+feature concatenation; the cell state float32 and h in the compute dtype.
 
-- gate order (i, f, g, o), one bias, no extra forget bias (the cudnn
-  layout of published Clair checkpoints);
-- the reversed direction stacked on the batch axis, each direction with its
-  own W/U/b, and its outputs re-reversed before the feature concatenation;
-- gates accumulate in float32 from inputs in the compute dtype, the cell
-  state stays float32, and h is rounded to the compute dtype every step.
+``bilstm_with_cell`` (and ``bilstm``) is the plain version of the port's
+CUDA kernels (ops/): the reference they are held against, and the path a
+CPU tensor takes in their wrappers. It computes what the TPU's streaming
+kernel computes: gates accumulate in float32 from inputs in the compute
+dtype, and the input projection of all steps is hoisted into one product.
 
-One step form: the input projection of all steps is hoisted into one
-product before the loop. (The JAX package's second, fused form exists for a
-TPU memory cliff above batch 512.)
+``bilstm_scan`` is the JAX package's ``lax.scan`` BiLSTM itself (``bilstm``
+and ``_bilstm_fused`` there), which runs outside any Pallas kernel: torch
+products and the gate math, on whatever device x lies on. Training selects
+it with ``use_stream_bilstm=False`` (``train --no_stream_bilstm``) and no
+kernel flag (models/clair.py:select_bilstm). Its numerics are JAX's: each
+product and sum is rounded to the compute dtype (bf16 where the model
+computes in bf16), the gates are upcast to the cell dtype before the gate
+math, and h is rounded to the compute dtype every step. Two step forms,
+picked by the batch as in JAX: hoisted (x.W + b for all steps, then
+xw_t + h.U per step) up to ``FUSED_ABOVE`` rows, fused above it
+([x_t, h].[[W], [U]] + b per step, each step recomputed in the backward
+under ``torch.utils.checkpoint``, as JAX's ``jax.checkpoint(step)``).
 
 Parameters keep the JAX layout: ``{"fw": {"w": (F, 4H), "u": (H, 4H),
 "b": (4H,)}, "bw": {...}}``.
@@ -24,6 +34,11 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+# the batch above which the JAX scan takes its fused step form
+# (clair_tpu/models/bilstm.py:97)
+FUSED_ABOVE = 512
 
 
 def _cell_dtype(compute_dtype: torch.dtype) -> torch.dtype:
@@ -91,3 +106,57 @@ def bilstm_with_cell(params: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch
 def bilstm(params: Dict, x: torch.Tensor) -> torch.Tensor:
     """Bidirectional LSTM over a (B, T, F) batch -> (B, T, 2H) in x.dtype."""
     return bilstm_with_cell(params, x)[0]
+
+
+def bilstm_scan(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's scan BiLSTM over a (B, T, F) batch -> (B, T, 2H)
+    in x.dtype; the parameters in x's dtype. Above ``FUSED_ABOVE`` rows
+    the fused step form, else the hoisted one."""
+    if x.shape[0] > FUSED_ABOVE:
+        return _bilstm_scan_fused(params, x)
+    b, t_len, _ = x.shape
+    hidden = params["fw"]["u"].shape[0]
+    fw, bw = params["fw"], params["bw"]
+    # x.W + b for all steps, each direction in its own product, rounded to
+    # x's dtype after the product and after the bias: (T, 2B, 4H)
+    xw = torch.cat([(x @ fw["w"] + fw["b"]).transpose(0, 1),
+                    (x.flip(1) @ bw["w"] + bw["b"]).transpose(0, 1)], dim=1)
+    u = torch.stack([fw["u"], bw["u"]])
+
+    h = torch.zeros((2 * b, hidden), dtype=x.dtype, device=x.device)
+    c = torch.zeros((2 * b, hidden), dtype=_cell_dtype(x.dtype), device=x.device)
+    hs = []
+    for t in range(t_len):
+        # h.U per direction, rounded to x's dtype before the sum
+        rec = torch.bmm(h.view(2, b, hidden), u).view(2 * b, 4 * hidden)
+        c, h = _gate_update(xw[t] + rec, c, x.dtype)
+        hs.append(h)
+    return _unstack_outputs(torch.stack(hs), b)
+
+
+def _bilstm_scan_fused(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The scan's large-batch step form (JAX ``_bilstm_fused``): the input
+    projection inside the step, one [x_t, h].[[W], [U]] + b product per
+    direction, and the step recomputed in the backward, so that the saved
+    tensors are each step's h and c, not its (2B, 4H) gates."""
+    b, t_len, feat = x.shape
+    hidden = params["fw"]["u"].shape[0]
+    fw, bw = params["fw"], params["bw"]
+    xs = _stack_directions(x)  # (T, 2B, F)
+    wu = torch.stack([torch.cat([fw["w"], fw["u"]]), torch.cat([bw["w"], bw["u"]])])
+    bias = torch.stack([fw["b"], bw["b"]])[:, None, :]
+
+    def step(x_t, h, c):
+        inp = torch.cat([x_t, h], dim=-1).view(2, b, feat + hidden)
+        gates = (torch.bmm(inp, wu) + bias).view(2 * b, 4 * hidden)
+        c_new, h_new = _gate_update(gates, c, x.dtype)
+        return h_new, c_new
+
+    h = torch.zeros((2 * b, hidden), dtype=x.dtype, device=x.device)
+    c = torch.zeros((2 * b, hidden), dtype=_cell_dtype(x.dtype), device=x.device)
+    hs = []
+    for t in range(t_len):
+        # the step draws no random numbers: no RNG state to stash
+        h, c = checkpoint(step, xs[t], h, c, use_reentrant=False, preserve_rng_state=False)
+        hs.append(h)
+    return _unstack_outputs(torch.stack(hs), b)

@@ -21,7 +21,10 @@ The BiLSTM layer is chosen as the JAX forward chooses it (clair.py:117-141),
 without looking at the backend: ``use_pallas_bilstm`` (ops/bilstm.py, forward
 only), else ``use_pallas_stream_bilstm`` (ops/bilstm_stream.py), else
 ``use_pallas_train_bilstm`` (ops/bilstm_train.py, float32 only), else the
-streaming pair, the port's default. ``use_pallas_bilstm``'s layer returns
+streaming pair, the port's default, or, where the caller asks for the scan
+(training under ``use_stream_bilstm=False``), the JAX package's lax.scan
+(models/bilstm.py:bilstm_scan), the layer JAX leaves its forward on then.
+``use_pallas_bilstm``'s layer returns
 float32 whatever the compute dtype, so under bfloat16 everything after
 lstm1 runs in float32 on bf16-rounded weights, as JAX promotes it there;
 torch does not promote mixed matmul operands, so the products cast to the
@@ -47,6 +50,7 @@ import torch
 from torch import nn
 
 from clair_tpu_torch.params import ModelConfig
+from clair_tpu_torch.models.bilstm import bilstm_scan
 from clair_tpu_torch.models.layers import (
     alpha_dropout, dropout, glorot_uniform, he_fan_in, selu,
 )
@@ -164,14 +168,16 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
 
 class ClairNet(nn.Module):
     """The network, its parameters in the JAX layout. Calling runs it under
-    ``inference_mode``; training differentiates ``forward_logits``."""
+    ``inference_mode``; training differentiates ``forward_logits``.
+    ``scan``: the BiLSTM layers are the JAX package's lax.scan where
+    ``config`` sets no kernel flag (select_bilstm)."""
 
     def __init__(self, config: ModelConfig = ModelConfig(), device=None,
-                 tensor_parallel: Optional["TensorParallel"] = None):
+                 tensor_parallel: Optional["TensorParallel"] = None, scan: bool = False):
         super().__init__()
         if config.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {config.compute_dtype!r} not in {sorted(COMPUTE_DTYPES)}")
-        self.bilstm = select_bilstm(config)
+        self.bilstm = select_bilstm(config, scan)
         self.config = config
         self.tensor_parallel = tensor_parallel
         model_parallel = tensor_parallel.size if tensor_parallel is not None else 1
@@ -180,10 +186,11 @@ class ClairNet(nn.Module):
 
     @classmethod
     def from_jax(cls, tree: Dict, config: ModelConfig = ModelConfig(), device=None,
-                 tensor_parallel: Optional["TensorParallel"] = None) -> "ClairNet":
+                 tensor_parallel: Optional["TensorParallel"] = None,
+                 scan: bool = False) -> "ClairNet":
         """A ClairNet holding ``tree``: the full parameters, or with
         ``tensor_parallel`` this rank's shard of them."""
-        model = cls(config, device, tensor_parallel)
+        model = cls(config, device, tensor_parallel, scan)
         model.load_state_dict(params_from_jax(tree))
         return model
 
@@ -289,11 +296,13 @@ def _dense(p: Dict, x: torch.Tensor, reduce: Optional[Callable] = None) -> torch
     return y + p["b"]
 
 
-def select_bilstm(config: ModelConfig) -> Callable:
+def select_bilstm(config: ModelConfig, scan: bool = False) -> Callable:
     """The BiLSTM layer ``config`` selects, in the JAX forward's order
-    (clair.py:117-141); the streaming pair when no flag is set. Raises
-    ValueError for ``use_pallas_train_bilstm`` under a compute dtype other
-    than float32, on either device (the CPU path stands for the card's)."""
+    (clair.py:117-141); when no flag is set, the streaming pair, or with
+    ``scan`` the JAX package's lax.scan (what ``use_stream_bilstm=False``
+    leaves the JAX forward on), on either device. Raises ValueError for
+    ``use_pallas_train_bilstm`` under a compute dtype other than float32,
+    on either device (the CPU path stands for the card's)."""
     if config.use_pallas_bilstm:
         return bilstm_precomputed
     if config.use_pallas_stream_bilstm:
@@ -306,5 +315,5 @@ def select_bilstm(config: ModelConfig) -> Callable:
                 f"compute_dtype={config.compute_dtype}); unset one of them"
             )
         return bilstm_train
-    return bilstm_stream
+    return bilstm_scan if scan else bilstm_stream
 

@@ -56,9 +56,12 @@ def evaluate_model(
     batch_size: int = PREDICT_BATCH_SIZE,
     print_report: bool = True,
     device: str = "cuda",
+    scan: bool = False,
 ) -> EvaluationResult:
-    """Score the parameter tree ``params`` on every block of ``dataset``."""
-    model = ClairNet.from_jax(params, model_config, torch.device(device))
+    """Score the parameter tree ``params`` on every block of ``dataset``;
+    ``scan``: on the JAX package's lax.scan BiLSTM where ``model_config``
+    sets no kernel flag (models/clair.py:select_bilstm)."""
+    model = ClairNet.from_jax(params, model_config, torch.device(device), scan=scan)
     start = time.time()
 
     cm_gt21 = np.zeros((21, 21), dtype=np.int64)

@@ -22,7 +22,11 @@ On a CUDA device both BiLSTM layers run the kernel pair the model config
 selects (models/clair.py:select_bilstm; the streaming pair unless a flag
 says otherwise), forward and backward; a CPU device runs their plain
 versions. ``use_stream_bilstm`` acts as in the JAX loop: True sets
-``use_pallas_stream_bilstm``, None and False leave the model's flags alone.
+``use_pallas_stream_bilstm``; None and False leave the model's flags alone,
+and False with no flag set runs every forward of the run (the train and
+validation steps, the evaluation at the end) on the JAX package's lax.scan
+BiLSTM (models/bilstm.py:bilstm_scan), on either device. The auto rule
+(None) stays on the streaming pair whatever the dtype.
 
 With ``TrainingConfig.mesh`` (parallel/mesh.py) this process is one rank
 of a parallel run on ``TrainingConfig.device``: it reads the same epoch
@@ -130,8 +134,8 @@ class TrainingConfig:
     restore_best: bool = True
     # the JAX flag that picks the streaming Pallas BiLSTM: True selects it,
     # None and False leave the model's kernel flags alone. False with no
-    # kernel flag set means the JAX package's lax.scan, which in the port is
-    # the plain version, kept off the card: refused on a CUDA device
+    # kernel flag set runs the JAX package's lax.scan BiLSTM, the float32
+    # exact-parity escape hatch of the JAX loop (models/bilstm.py:bilstm_scan)
     use_stream_bilstm: Optional[bool] = None
     device: str = "cuda"
 
@@ -182,15 +186,6 @@ def _check_supported(config: TrainingConfig, device: torch.device) -> None:
     if config.mesh is not None and not isinstance(config.mesh, DeviceMesh):
         raise TypeError(f"mesh must be a DeviceMesh (parallel/mesh.py: make_mesh), not "
                         f"{type(config.mesh).__name__}")
-    model = config.model
-    if (device.type == "cuda" and config.use_stream_bilstm is False
-            and not (model.use_pallas_bilstm or model.use_pallas_stream_bilstm
-                     or model.use_pallas_train_bilstm)):
-        raise NotImplementedError(
-            "use_stream_bilstm=False with no BiLSTM kernel flag selects the JAX "
-            "package's lax.scan, which in the port is the plain PyTorch version: it "
-            "serves CPU tensors and is kept off the card (ROADMAP, the kernel rule); "
-            "set a ModelConfig kernel flag, or leave use_stream_bilstm unset")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training on 'cuda' needs a CUDA device and "
                            "torch.cuda.is_available() is false")
@@ -202,6 +197,7 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
     model_config = dataclasses.replace(config.model, compute_dtype=config.train_compute_dtype)
     if config.use_stream_bilstm:
         model_config = dataclasses.replace(model_config, use_pallas_stream_bilstm=True)
+    scan = config.use_stream_bilstm is False
     rank, world = 0, 1
     data_index = 0
     shard = tp = None
@@ -243,7 +239,7 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
         start_epoch = 1
     if tp is not None:
         params = shard_params(params, tp.index, tp.size)
-    model = ClairNet.from_jax(params, model_config, device, tp)
+    model = ClairNet.from_jax(params, model_config, device, tp, scan)
 
     def full_params():
         # a collective over the model group where the model is a shard
@@ -389,7 +385,7 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
     if config.evaluate_at_end and rank == 0:
         from clair_tpu_torch.pipeline.evaluate import evaluate_model
 
-        evaluate_model(params, model_config, dataset, device=config.device)
+        evaluate_model(params, model_config, dataset, device=config.device, scan=scan)
 
     return TrainResult(
         params=params,

@@ -26,6 +26,7 @@ from clair_tpu.models.clair import init_params as jax_init_params
 from clair_tpu.pipeline.call_var import Predictor as JaxPredictor
 from clair_tpu_torch.data import bins
 from clair_tpu_torch.models import clair as port_clair
+from clair_tpu_torch.models.bilstm import bilstm_scan
 from clair_tpu_torch.models.clair import ClairNet, select_bilstm
 from clair_tpu_torch.ops.bilstm import bilstm_precomputed
 from clair_tpu_torch.ops.bilstm_stream import bilstm_stream
@@ -130,16 +131,23 @@ def test_select_bilstm_follows_the_jax_order():
 
 
 def test_use_stream_bilstm_false_runs_the_model_flags_kernel():
-    """False alone means the lax.scan, kept off the card: refused for a
-    CUDA device. With a kernel flag set, that kernel runs, as in the JAX
-    loop: the check passes it (and then asks for a card, where there is
-    none)."""
+    """False alone selects the JAX package's lax.scan (models/bilstm.py:
+    bilstm_scan), on a CUDA device too: the check passes it (and then asks
+    for a card, where there is none). With a kernel flag set, that kernel
+    runs, as in the JAX loop: the check passes it likewise."""
     cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="lax.scan"):
-        _check_supported(TrainingConfig(use_stream_bilstm=False, device="cuda"), cuda)
-    for flag in ("use_pallas_train_bilstm", "use_pallas_bilstm", "use_pallas_stream_bilstm"):
-        config = TrainingConfig(model=ModelConfig(**{flag: True}), use_stream_bilstm=False,
-                                device="cuda")
+    f32 = dataclasses.replace(NARROW, compute_dtype="float32")
+    assert select_bilstm(f32, scan=True) is bilstm_scan
+    assert select_bilstm(NARROW, scan=True) is bilstm_scan
+    assert ClairNet(NARROW, scan=True).bilstm is bilstm_scan
+    kernels = {"use_pallas_train_bilstm": bilstm_train, "use_pallas_bilstm": bilstm_precomputed,
+               "use_pallas_stream_bilstm": bilstm_stream}
+    configs = [TrainingConfig(use_stream_bilstm=False, device="cuda")]
+    for flag, kernel in kernels.items():
+        assert select_bilstm(dataclasses.replace(f32, **{flag: True}), scan=True) is kernel
+        configs.append(TrainingConfig(model=ModelConfig(**{flag: True}),
+                                      use_stream_bilstm=False, device="cuda"))
+    for config in configs:
         if torch.cuda.is_available():
             _check_supported(config, cuda)
         else:

@@ -3,7 +3,8 @@ narrow width: dropout and alpha-dropout moments, init_params'
 distributions, clip + Adam / SGDM against optax, three train steps against
 the JAX make_train_step, evaluate_model's confusion matrices, a two-epoch
 train_model against the JAX train_model from one init checkpoint, and the
-``train`` command on a bin the JAX package wrote."""
+``train`` command on a bin the JAX package wrote (and under
+``--no_stream_bilstm``)."""
 
 import dataclasses
 import json
@@ -23,6 +24,7 @@ from clair_tpu.params import ModelConfig as JaxModelConfig
 from clair_tpu.parallel import sharding as jax_sharding
 from clair_tpu_torch import cli
 from clair_tpu_torch.data import bins
+from clair_tpu_torch.models import clair as port_clair
 from clair_tpu_torch.models.checkpoint import checkpoint_path, load_checkpoint, save_checkpoint
 from clair_tpu_torch.models.clair import ClairNet, init_params, params_from_jax
 from clair_tpu_torch.models.layers import ALPHA_DROPOUT_VALUE, alpha_dropout, dropout
@@ -318,23 +320,44 @@ def test_train_command_on_a_jax_written_bin(tmp_path, capsys):
     assert extra["epoch"] == 1 and params["l3"]["w"].shape == (256, 33, 30)
 
 
-# what each refused flag set raises: the lax.scan BiLSTM names its ROADMAP
-# item; more GPUs than this machine has raise (no fallback to fewer); a
-# model axis must divide the devices, before any process starts; the
-# multi-process flags come together
+def test_train_command_no_stream_bilstm_runs_the_scan(tmp_path, capsys, monkeypatch):
+    """``train --no_stream_bilstm`` at full width (here on the CPU, in the
+    default bfloat16): every forward runs the JAX package's lax.scan
+    BiLSTM, the streaming layer none, and the JSON line counts no kernel
+    launch."""
+    calls = []
+
+    def counting(fn):
+        def wrapped(params, x):
+            calls.append(fn.__name__)
+            return fn(params, x)
+        return wrapped
+
+    for fn in (port_clair.bilstm_scan, port_clair.bilstm_stream):
+        monkeypatch.setattr(port_clair, fn.__name__, counting(fn))
+    path = _bin(tmp_path, n=40, seed=8)
+    cli.cmd_train(["--bin_fn", path, "--maxEpoch", "1", "--decompress_workers", "0",
+                   "--no_stream_bilstm"], device="cpu")
+    report = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
+    assert set(report["kernel_launches"].values()) == {0}
+    assert calls and set(calls) == {"bilstm_scan"}
+    assert all(math.isfinite(v) for v, _ in report["training_losses"])
+
+
+# what each refused flag set raises: more GPUs than this machine has raise
+# (no fallback to fewer); a model axis must divide the devices, before any
+# process starts; the multi-process flags come together
 REFUSED = {
     "--num_devices": (RuntimeError, "needs 2 CUDA devices"),
     "--coordinator_address": (SystemExit, None),
     "--model_parallel": (ValueError, "must divide"),
     "--num_processes": (SystemExit, None),
-    "--no_stream_bilstm": (NotImplementedError, "ROADMAP"),
 }
 
 
 @pytest.mark.parametrize("flags", [
     ["--num_devices", "2"], ["--coordinator_address", "localhost:1"],
     ["--model_parallel", "3", "--num_devices", "2"], ["--num_processes", "2"],
-    ["--no_stream_bilstm"],
 ])
 def test_train_command_refuses_what_is_not_ported(flags):
     if flags[0] == "--num_devices" and torch.cuda.device_count() >= 2:
