@@ -9,7 +9,8 @@ Phases, each printing its results and seconds:
 1. the card (nvidia-smi name and power limit); no CUDA device -> exit 1
 2. build every kernel in clair_tpu_torch/csrc/ (one nvcc each, all at once)
 3. the streaming forward kernel against its plain PyTorch version, and at
-   every launchable (cluster size, rows per tile) at a small batch
+   every launchable (cluster size, rows per tile) at a small batch: bf16
+   over its cluster kernel's geometries, float32 over the sweep's
    3b. the resident train pair (use_pallas_train_bilstm) against its plain
        versions and torch.autograd, and two backward runs bit for bit, at
        every TRAIN_GEOMETRIES geometry; its forward at every launchable
@@ -96,15 +97,19 @@ Phases, each printing its results and seconds:
         its train step at B = 10,000 and its peak memory, beside the
         streaming pair's step
 9. times (CUDA events after warm-up) beside the card's name and power limit;
+   the streaming forward per layer at B = 512 and 10,000 in both dtypes
+   (float32 beside the float32 FMA kernel's times that the sweep replaced);
    the model's calling forward at B = 512 in both dtypes, streaming and
-   under use_pallas_bilstm
-   9a. the two backwards (rows 2 and 6) and the resident forward (row 5)
-       split by kernel (torch.profiler) at B = 10,000
+   under use_pallas_bilstm; the train step and its peak memory
+   9a. the two backwards (rows 2 and 6) and the float32 forwards (row 5,
+       and row 1's float32 mode) split by kernel (torch.profiler) at
+       B = 10,000
    9b. the other kernels' times, and the train step under each training pair
    9c. bilstm2 as a library call on the vendored checkpoint's two layers
    9d. each kernel's bound (the least time the card could take for its
        work) and the time of the one PyTorch call that computes the same
-       function, where there is one (torch.nn.LSTM, cuDNN, TF32 off)
+       function, where there is one (torch.nn.LSTM, cuDNN, TF32 off); row
+       1's float32 mode too, at B = 512 and 10,000
 
 Each run of phases 7, 7b, 7c, 8, 8b, 8c and 10a-10g runs in a process of
 its own, so the launch counts it reports start from 0 just before it and
@@ -178,10 +183,11 @@ TRAIN_PAIR = ("bilstm_train", "bilstm_train_backward")
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 # the forward at the shapes the calling path (B = 512) and the training path
 # (B = 10,000, c saved for the backward) give it, a batch of 12, a ragged
-# batch of 13 (no multiple of the 4-row tile) and a tiny odd geometry
+# batch of 13 (no multiple of the 4-row tile), a tiny odd geometry and F and
+# H no multiples of 8 (float32 pads them)
 FWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 32, 128),
                   (10000, 33, 256, 128), (12, 33, 32, 128), (13, 33, 256, 128),
-                  (8, 7, 16, 8))
+                  (8, 7, 16, 8), (13, 9, 12, 20))
 # backward kernel vs plain: float32 max |diff| of each gradient within this
 # share of the reference's max |value| (the 3e-4 family of
 # tests/test_pallas_bilstm_stream.py; sums over up to 330,000 rows in
@@ -231,6 +237,11 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
 T_LEN, HIDDEN, CALL_BATCH, TRAIN_BATCH = 33, 128, 512, 10_000
 LAYERS = (("lstm1", 32), ("lstm2", 256))
+# row 1's float32 mode as the float32 FMA kernel ran it before the sweep, ms
+# per (layer, batch) (B = 10,000 with c): phase 9 of this script on an
+# NVIDIA H100 80GB HBM3 at 700 W, beside which phase 9 prints the sweep's
+ROW1_F32_FMA_MS = {("lstm1", 512): 0.2576, ("lstm2", 512): 0.9695,
+                   ("lstm1", 10_000): 4.6980, ("lstm2", 10_000): 14.5463}
 
 # calling under use_pallas_bilstm, in a process of its own (phase 7b)
 CALL_SCRIPT = """
@@ -501,17 +512,28 @@ def check_kernel(dev):
             else:
                 assert err_h <= BF16_TOL and err_c <= BF16_TOL, (err_h, err_c)
     assert bilstm_stream.launches == before + calls, "the kernel did not launch"
+    # a float32 width that no sweep geometry fits raises before any launch
+    wide = lstm_params(np.random.RandomState(3), 8, 264, dev)
+    try:
+        bilstm_stream(wide, torch.zeros((2, 3, 8), device=dev))
+    except ValueError as refused:
+        print(f"  float32 H=264 refused before a launch: {refused}")
+    else:
+        raise AssertionError("the float32 forward took H = 264 on the card")
+    assert bilstm_stream.launches == before + calls
     return max(max_err, check_forward_geometries(dev))
 
 
 def check_forward_geometries(dev):
-    """Phase 3, second part: the forward kernel at every (cluster size, rows
-    per tile) that launches (clair_bilstm_stream_fwd_geometry), at a small
+    """Phase 3, second part: the forward at every (cluster size, rows per
+    tile) that launches (clair_bilstm_stream_fwd_geometry), at a small
     ragged batch of each layer's width, in both dtypes, against the plain
     version within F32_TOL / BF16_TOL (idle warps at the larger clusters,
-    where a race once hid)."""
+    where a race once hid): bf16 over FWD_CLUSTERS x FWD_ROWS, float32 over
+    every geometry of the sweep that fits (f32_geometries)."""
     from clair_tpu_torch.ops.bilstm_stream import (
-        FWD_CLUSTERS, FWD_ROWS, _stack_params, bilstm_stream_reference, forward_geometry,
+        FWD_CLUSTERS, FWD_ROWS, _stack_params, bilstm_stream_reference, f32_geometries,
+        forward_geometry,
     )
 
     max_err = 0.0
@@ -519,26 +541,27 @@ def check_forward_geometries(dev):
         rs = np.random.RandomState(feat + 2)
         params = lstm_params(rs, feat, HIDDEN, dev)
         x = torch.tensor(rs.randn(GEOMETRY_BATCH, T_LEN, feat), dtype=torch.float32, device=dev)
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        bf16_geometries = [(c, r) for c in FWD_CLUSTERS for r in FWD_ROWS]
+        for dtype, tol, geometries in ((torch.float32, F32_TOL, f32_geometries(feat, HIDDEN)),
+                                       (torch.bfloat16, BF16_TOL, bf16_geometries)):
             xd = x.to(dtype)
             want_h, want_c = bilstm_stream_reference(params, xd)
             launched, worst = [], 0.0
-            for cluster in FWD_CLUSTERS:
-                for rows in FWD_ROWS:
-                    got = forward_geometry(xd, *_stack_params(params, dtype), cluster, rows)
-                    if got is None:
-                        continue
-                    torch.cuda.synchronize()
-                    err = max((got[0].float() - want_h.float()).abs().max().item(),
-                              (got[1] - want_c).abs().max().item())
-                    assert err <= tol, (layer, str(dtype), cluster, rows, err)
-                    launched.append((cluster, rows))
-                    worst = max(worst, err)
+            for cluster, rows in geometries:
+                got = forward_geometry(xd, *_stack_params(params, dtype), cluster, rows)
+                if got is None:
+                    continue
+                torch.cuda.synchronize()
+                err = max((got[0].float() - want_h.float()).abs().max().item(),
+                          (got[1] - want_c).abs().max().item())
+                assert err <= tol, (layer, str(dtype), cluster, rows, err)
+                launched.append((cluster, rows))
+                worst = max(worst, err)
             assert launched, (layer, dtype)
             if dtype == torch.float32:
                 max_err = max(max_err, worst)
             print(f"  forward {layer} B={GEOMETRY_BATCH} {str(dtype)[6:]} at every launchable "
-                  f"(cluster, rows), {len(launched)} of {len(FWD_CLUSTERS) * len(FWD_ROWS)}: "
+                  f"(cluster, rows), {len(launched)} of {len(geometries)} that fit: "
                   f"max|d| {worst:.3e}; {launched}")
     return max_err
 
@@ -619,9 +642,8 @@ def check_sweep_geometries(dev):
     per tile) of the sweep that launches, at a small ragged batch of each
     layer's width, against the plain version within F32_TOL (h and c). No
     count moves (the geometry runs serve no path)."""
-    from clair_tpu_torch.ops.bilstm_train import (
-        _forward_launch, bilstm_train_reference, sweep_geometries,
-    )
+    from clair_tpu_torch.ops.bilstm_train import _forward_launch, bilstm_train_reference
+    from clair_tpu_torch.ops.lstm_sweep import sweep_geometries
 
     worst_all, before = 0.0, kernel_counts()
     for layer, feat in LAYERS:
@@ -677,7 +699,7 @@ def check_precomputed(dev):
     from clair_tpu_torch.ops.bilstm import (
         _launch, bilstm_recurrence, bilstm_recurrence_reference, u_pieces,
     )
-    from clair_tpu_torch.ops.bilstm_train import sweep_geometries
+    from clair_tpu_torch.ops.lstm_sweep import sweep_geometries
 
     max_err, calls, before = 0.0, 0, kernel_counts()
     shapes = ([(GEOMETRY_BATCH, T_LEN, feat, HIDDEN) for _, feat in LAYERS]
@@ -726,7 +748,7 @@ def check_bilstm2(dev):
     train forward whose kernels it runs), and at every launchable sweep
     geometry at a small ragged batch (no count)."""
     from clair_tpu_torch.ops.bilstm2 import _layers, bilstm2, bilstm2_reference
-    from clair_tpu_torch.ops.bilstm_train import sweep_geometries
+    from clair_tpu_torch.ops.lstm_sweep import sweep_geometries
 
     max_err = 0.0
     before = kernel_counts()
@@ -1595,8 +1617,10 @@ def step_device_time(run, iters=5):
 
 # the backwards' kernels by part, from substrings of their names (the rest
 # are the wrapper's torch ops: U's transpose and the sum of the weight
-# partials); row 2's problems are GateProblem, ..., row 6's StackedGateProblem
-BWD_PARTS = (("gate product", ("GateProblem",)), ("sweep", ("sweep",)),
+# partials); row 2's problems are GateProblem, ..., row 6's StackedGateProblem,
+# and the float32 forwards' x.W products are row 5's StackedGateProblem and
+# row 1's StreamXWProblem
+BWD_PARTS = (("gate product", ("GateProblem", "XWProblem")), ("sweep", ("sweep",)),
              ("weight sums", ("WeightSumProblem",)), ("dx", ("DxProblem",)),
              ("float32 pieces", ("split_pieces",)))
 
@@ -1672,16 +1696,23 @@ def backward_split(dev, batch=TRAIN_BATCH, iters=5, dtypes=(torch.bfloat16, torc
 
 
 def forward_split(dev, batch=TRAIN_BATCH, iters=5):
-    """Row 5's device time by part (``device_parts``: the float32 pieces of
-    xs and W, the product xw = xs.W + b under "gate product", the sweep),
-    per layer at the training batch. {layer: {part: ms per call}}."""
+    """The float32 forwards' device time by part (``device_parts``: the
+    float32 pieces of x and W, the product xw = x.W + b under "gate
+    product", the sweep), per layer at the training batch: row 5, and row
+    1's float32 mode with c. {(row, layer): {part: ms per call}}."""
+    from clair_tpu_torch.ops.bilstm_stream import _forward, _stack_params
     from clair_tpu_torch.ops.bilstm_train import bilstm_train_forward
 
     split = {}
     for layer, feat in LAYERS:
         xs, w, u, bias, _ = stacked_inputs((batch, T_LEN, feat, HIDDEN), dev, feat + 5)
-        split[layer] = device_parts(lambda: bilstm_train_forward(xs, w, u, bias), iters,
-                                    f"row 5 split {layer} B={batch} float32")
+        split[(5, layer)] = device_parts(lambda: bilstm_train_forward(xs, w, u, bias), iters,
+                                         f"row 5 split {layer} B={batch} float32")
+        rs = np.random.RandomState(feat + 5)
+        stacked = _stack_params(lstm_params(rs, feat, HIDDEN, dev), torch.float32)
+        x = torch.tensor(rs.randn(batch, T_LEN, feat), dtype=torch.float32, device=dev)
+        split[(1, layer)] = device_parts(lambda: _forward(x, *stacked, with_cell=True), iters,
+                                         f"row 1 split {layer} B={batch} float32")
     return split
 
 
@@ -1881,6 +1912,8 @@ def yardsticks(dev):
     the train pair, lstm1 without dx), and library_ms, the time of
     torch.nn.LSTM computing the same function on the same shapes (row 3:
     with an identity weight_ih, fed xw; None where it refuses the dtype).
+    Row 1's float32 mode gets the same at B = 512 and 10,000 (both layers,
+    c at the training batch), returned as a third dict by batch.
     Prints beside each bound the tensor-core term of the kernel's passes
     (passes x operations / the bf16 peak): the float32 rows run their
     products as six bf16 passes, row 3 its h.U as three (U bf16)."""
@@ -1950,14 +1983,25 @@ def yardsticks(dev):
     x = torch.tensor(rs.randn(CALL_BATCH, T_LEN, 32), dtype=f32, device=dev)
     library["bilstm2"] = inference(two, x, 32)
     print(f"    torch.nn.LSTM num_layers=2 B={CALL_BATCH} float32: {library['bilstm2']:.4f} ms")
-    # the streaming forward's float32 calling layers too, for the table
-    each_layer(CALL_BATCH, f32, inference)
+    # row 1's float32 mode, both layers: at the calling batch, and at the
+    # training batch with c, where its library call is row 5's (the same
+    # layers in cuDNN's training forward)
+    f32_mode = {}
+    for batch, lib in ((CALL_BATCH, each_layer(CALL_BATCH, f32, inference)),
+                       (TRAIN_BATCH, library["bilstm_train"])):
+        b_ms, b_by = bound([fwd_work(batch, f, f32, with_cell=batch == TRAIN_BATCH)
+                            for _, f in LAYERS], f32)
+        f32_mode[f"B={batch}"] = {"bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     for name in KERNELS:
         ms, by = bounds[name]
         lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
         print(f"  {name}: bound {ms:.4f} ms ({by}), {works[name][2]}-pass tensor-core term "
               f"{pass_ms[name]:.4f} ms, library {lib}")
-    return bounds, library
+    for batch, y in f32_mode.items():
+        lib = "none" if y["library_ms"] is None else f"{y['library_ms']:.4f} ms"
+        print(f"  bilstm_stream float32 {batch}: bound {y['bound_ms']:.4f} ms ({y['bound_by']}), "
+              f"library {lib}")
+    return bounds, library, f32_mode
 
 
 def main():
@@ -2137,6 +2181,7 @@ def main():
     print(f"times on {card} (CUDA events, mean of 20 after warm-up; B=10000: mean of 5):")
     ms = {k: 0.0 for k in KERNELS}
     plain_ms = dict(ms)
+    row1_f32 = {}  # (layer, batch): (kernel ms, plain ms) of row 1's float32 mode
     for layer, feat in (("lstm1", 32), ("lstm2", 256)):
         rs = np.random.RandomState(feat)
         p = lstm_params(rs, feat, 128, dev)
@@ -2149,10 +2194,14 @@ def main():
             pl = cuda_ms(lambda: bilstm_stream_reference(p, xd))
             wrapped = cuda_ms(lambda: bilstm_stream(p, xd))
             print(f"  forward {layer} B=512 {str(dtype)[6:]}: kernel {k:.4f} ms, plain {pl:.4f} ms, "
-                  f"through the wrapper {wrapped:.4f} ms")
+                  f"through the wrapper {wrapped:.4f} ms" + (
+                      f"; the float32 FMA kernel before the sweep took "
+                      f"{ROW1_F32_FMA_MS[(layer, 512)]:.4f} ms" if dtype == torch.float32 else ""))
             if dtype == torch.bfloat16:
                 ms["bilstm_stream"] += k
                 plain_ms["bilstm_stream"] += pl
+            else:
+                row1_f32[(layer, 512)] = (k, pl)
         # the training forward: B = 10,000, the float32 c saved for the backward
         xt = torch.tensor(rs.randn(TRAIN_BATCH, 33, feat), dtype=torch.float32, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -2160,7 +2209,12 @@ def main():
             k = cuda_ms(lambda: _forward(xd, *stacked, with_cell=True), 5)
             pl = cuda_ms(lambda: bilstm_stream_reference(p, xd), 5)
             print(f"  forward {layer} B={TRAIN_BATCH} {str(dtype)[6:]} (with c): kernel {k:.4f} ms, "
-                  f"plain {pl:.4f} ms")
+                  f"plain {pl:.4f} ms" + (
+                      f"; the float32 FMA kernel before the sweep took "
+                      f"{ROW1_F32_FMA_MS[(layer, TRAIN_BATCH)]:.4f} ms"
+                      if dtype == torch.float32 else ""))
+            if dtype == torch.float32:
+                row1_f32[(layer, TRAIN_BATCH)] = (k, pl)
         for batch in (512, 10_000):
             iters = 20 if batch == 512 else 5
             xb = torch.tensor(rs.randn(batch, 33, feat), dtype=torch.float32, device=dev)
@@ -2187,9 +2241,10 @@ def main():
                 fwd = cuda_ms(lambda: model(_device_input(xu)))
             print(f"  forward B=512 {dtype} {kernel}: {fwd:.4f} ms, {512 / fwd * 1e3:.0f} tensors/s")
     for dtype in ("bfloat16", "float32"):
-        step_ms, rate, _ = step_times(full_width_step(params, dev, dtype))
-        print(f"  train step B=10000 {dtype}: {step_ms:.2f} ms, {rate:.0f} samples/s "
-              f"(host clock, mean of 5 synchronized steps)")
+        step_ms, rate, peak = step_times(full_width_step(params, dev, dtype))
+        print(f"  train step B=10000 {dtype}: {step_ms:.2f} ms, {rate:.0f} samples/s, peak "
+              f"{peak / 2 ** 30:.2f} GiB (host clock, mean of 5 synchronized steps; the peak "
+              f"above what was allocated before them)")
     for dtype, (rows, _, wall, sites) in runs.items():
         print(f"  call_bam {dtype}: wall {wall:.2f} s (process start to exit), "
               f"{len(rows)} VCF rows; {sites}")
@@ -2199,12 +2254,12 @@ def main():
     phase("9 times", t)
 
     t = time.perf_counter()
-    print(f"rows 2, 6 and 5 by kernel on {card} (torch.profiler, mean of 5 calls after a "
-          f"warm-up):")
+    print(f"rows 2, 6, 5 and 1 (float32) by kernel on {card} (torch.profiler, mean of 5 calls "
+          f"after a warm-up):")
     backward_split(dev)
     backward_split(dev, pair=TRAIN_PAIR)
     forward_split(dev)
-    phase("9a the backwards' and row 5's split", t)
+    phase("9a the backwards' and the float32 forwards' split", t)
 
     t = time.perf_counter()
     new_kernel_times(params, dev, ms, plain_ms)
@@ -2216,7 +2271,7 @@ def main():
 
     t = time.perf_counter()
     print(f"bounds and library calls on {card}:")
-    bounds, library = yardsticks(dev)
+    bounds, library, f32_mode = yardsticks(dev)
     phase("9d bounds and library calls", t)
 
     assert "jax" not in sys.modules
@@ -2228,10 +2283,22 @@ def main():
                 **{k: trains["float32, use_pallas_train_bilstm"][0]["kernel_launches"][k] for k in TRAIN_PAIR},
                 "bilstm_precomputed": precomputed_runs["bfloat16"][1]["bilstm_precomputed"],
                 "bilstm2": library_launches}
+    # row 1's float32 mode beside its bf16 numbers: both layers per batch,
+    # its launches in the float32 call_bam run (B = 512) and the float32
+    # train run (B = 10,000)
+    f32_launches = {CALL_BATCH: runs["float32"][1]["bilstm_stream"],
+                    TRAIN_BATCH: trains["float32"][0]["kernel_launches"]["bilstm_stream"]}
+    for batch in (CALL_BATCH, TRAIN_BATCH):
+        f32_mode[f"B={batch}"].update(
+            launches=f32_launches[batch],
+            ms=sum(row1_f32[(layer, batch)][0] for layer, _ in LAYERS),
+            plain_ms=sum(row1_f32[(layer, batch)][1] for layer, _ in LAYERS),
+            **{f"{layer}_ms": row1_f32[(layer, batch)][0] for layer, _ in LAYERS})
     print(json.dumps({"kernels": [dict(
         KERNELS[k], launches=launches[k], max_abs_err=max_err[k], ms=ms[k],
         plain_ms=plain_ms[k], bound_ms=bounds[k][0], bound_by=bounds[k][1],
-        library_ms=library[k]) for k in KERNELS]}))
+        library_ms=library[k], **({"float32": f32_mode} if k == "bilstm_stream" else {}))
+        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -100,18 +100,7 @@ struct StackedXH {
     float inv_b;  // 1 / B: m / B by a float product (m < 2^24), corrected
     __device__ int rows() const { return batch * t_len; }
     // the step t of row m, and in r its row of the direction
-    __device__ int step(int m, int& r) const {
-        int t = __float2int_rd(__int2float_rn(m) * inv_b);
-        r = m - t * batch;
-        if (r < 0) {
-            --t;
-            r += batch;
-        } else if (r >= batch) {
-            ++t;
-            r -= batch;
-        }
-        return t;
-    }
+    __device__ int step(int m, int& r) const { return split_row(m, batch, inv_b, r); }
     __device__ size_t row_of(int t, int dir, int r) const {
         return (static_cast<size_t>(t) * 2 + dir) * batch + r;
     }

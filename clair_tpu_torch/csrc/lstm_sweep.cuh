@@ -2,21 +2,24 @@
 // cores, for Hopper (sm_90a): h (and c) of every step from every step's
 // input pre-activations xw = x.W + b, which a tensor-core product computes
 // for all steps at once beforehand (mma_product.cuh). Only h.U is serial.
-// Three rows of the port's kernel table run on it: the resident training
+// Four rows of the port's kernel table run on it: the resident training
 // forward (row 5, bilstm_train.cu, for clair_tpu/ops/pallas_bilstm_train.py:
 // _fwd_kernel), the two-layer forward (row 4, ops/bilstm2.py, for
-// clair_tpu/ops/pallas_bilstm2.py:_bilstm2_kernel), both on float32 xw and
-// U, and the recurrence on precomputed projections (row 3, bilstm.cu, for
-// clair_tpu/ops/pallas_bilstm.py:_bilstm_kernel), on the caller's xw and U
-// in float32 or bf16.
+// clair_tpu/ops/pallas_bilstm2.py:_bilstm2_kernel) and the streaming
+// forward's float32 mode (row 1, bilstm_stream_fwd.cu, for
+// clair_tpu/ops/pallas_bilstm_stream.py:_fwd_kernel), all on float32 xw
+// and U, and the recurrence on precomputed projections (row 3, bilstm.cu,
+// for clair_tpu/ops/pallas_bilstm.py:_bilstm_kernel), on the caller's xw
+// and U in float32 or bf16.
 //
 // What bounds it: a step's product is small (rows x H x 4H) and the T steps
 // are serial, so the weights must stay on chip and a step's latency (the
 // carry, the cell, the exchange of h, one cluster barrier) sets the time.
 // The design before this one (one thread per hidden unit, float32 FMA)
 // re-read W and U from L2 every step for 4 or 16 rows. Keeping float32 U on
-// chip does not help by itself: the streaming forward's float32 mode does
-// so and is bound by the shared-memory loads that feed its FMAs.
+// chip does not help by itself: the streaming forward's float32 mode did
+// so, with W too, and was bound by the shared-memory loads that fed its
+// FMAs, until it moved onto this sweep.
 //
 // Design:
 // - Numerics: h.U with h as three bf16 pieces (p0 = bf16(v), p1 =
@@ -77,7 +80,7 @@
 // ms more than a float32 xw; widened in the cell, as here, it costs none.
 //
 // The layout policy S (bilstm_train.cu: StackedForward; bilstm.cu:
-// PrecomputedForward) supplies the element types xw_type and u_type
+// PrecomputedForward; bilstm_stream_fwd.cu: StreamForward) supplies the element types xw_type and u_type
 // (float or bf16: xw is widened where the cell takes it, U split into its P =
 // u_pieces<S> pieces as it is staged, so a bf16 xw crosses memory at half
 // the bytes and a bf16 U takes a third of the shared memory), xw (rows of

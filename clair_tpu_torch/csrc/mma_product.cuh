@@ -66,6 +66,22 @@ struct Pieces {
     }
 };
 
+// Row m = t * batch + r of a product over T*B rows: t, and r through `r`,
+// with t = m / batch by a float product with inv_b = 1 / batch, corrected
+// (exact below 2^24 rows).
+__device__ __forceinline__ int split_row(int m, int batch, float inv_b, int& r) {
+    int t = __float2int_rd(__int2float_rn(m) * inv_b);
+    r = m - t * batch;
+    if (r < 0) {
+        --t;
+        r += batch;
+    } else if (r >= batch) {
+        ++t;
+        r -= batch;
+    }
+    return t;
+}
+
 // ---- float32 operands as three bf16 pieces --------------------------------
 
 // dst (rows, 3, cols) from src (rows, cols): p0 = bf16(v), p1 = bf16(v - p0),

@@ -42,8 +42,9 @@ import torch
 
 from clair_tpu_torch.models.bilstm import _gate_update
 from clair_tpu_torch.ops.bilstm_stream import split_bf16_product
-from clair_tpu_torch.ops.bilstm_train import _CUDA_ERROR_INVALID_VALUE, check_sweep_width
+from clair_tpu_torch.ops.bilstm_train import _CUDA_ERROR_INVALID_VALUE
 from clair_tpu_torch.ops.build import entry, on_cuda
+from clair_tpu_torch.ops.lstm_sweep import check_sweep_width
 
 _KERNEL = "bilstm"
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]

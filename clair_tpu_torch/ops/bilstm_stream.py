@@ -8,6 +8,18 @@ and ``_bilstm_bwd``) is ``csrc/bilstm_stream_bwd.cu``; each source says what
 bounds it and how it is laid out. ``bilstm_stream(params, x)`` is the
 drop-in for ``models.bilstm.bilstm``: (B, T, F) -> (B, T, 2H) in x's dtype.
 
+The forward has two modes behind one entry point. bfloat16 runs the
+cluster kernel of ``bilstm_stream_fwd.cu`` (W and U in shared memory).
+float32 runs three parts, as the resident training forward does: x and W
+as three bf16 pieces, xw = x.W + b of every step for both directions at
+once on the tensor cores (into a (2, T, B, 4H) buffer that ``_launch``
+allocates with the pieces' scratch), and the float32 forward sweep of
+``csrc/lstm_sweep.cuh``. The sweep takes F and H in multiples of 8:
+``pad_f32`` zero-pads them (exact: a padded unit's gates are 0, so its c
+and h stay 0) and the outputs are cut back. ``f32_geometries`` says which
+sweep geometries a width takes, and ``check_f32_width`` raises ValueError
+before any launch where none fits.
+
 When a gradient is wanted, the layer runs as ``_BiLSTMStream``, a
 ``torch.autograd.Function`` that pairs the forward (keeping the float32 cell
 states) with the backward. The parameters are stacked and cast to the
@@ -29,19 +41,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from clair_tpu_torch.models.bilstm import bilstm_with_cell
 from clair_tpu_torch.ops.build import entry, launch, on_cuda
+from clair_tpu_torch.ops.lstm_sweep import check_sweep_width, sweep_geometries
 
 _FWD_KERNEL = "bilstm_stream_fwd"
 _BWD_KERNEL = "bilstm_stream_bwd"
 _DTYPES = (torch.float32, torch.bfloat16)
 # the backward's largest hidden size (its FMA sweep: one thread per hidden
-# unit); the forward takes any size whose weights fit a cluster's shared
-# memory
+# unit); the forward takes, in bf16, any size whose weights fit a cluster's
+# shared memory, and in float32 any the sweep fits (check_f32_width)
 _MAX_HIDDEN = 1024
 # the backward's weight sums: rows per chunk of the split reduction, and
 # the most chunks (their float32 partials are summed by the caller)
@@ -56,8 +69,9 @@ _SWEEP_ROWS = 0
 # into (csrc/bilstm_stream_bwd.cu, "Numerics"), by the compute dtype: 2 for
 # the dgates in bf16 mode, 3 for every float32 operand in float32 mode
 KERNEL_PIECES = {torch.bfloat16: 2, torch.float32: 3}
-# the forward kernel's cluster sizes and rows per tile
-# (csrc/bilstm_stream_fwd.cu: kMaxCluster, kItemRows up to 64)
+# the bf16 forward kernel's cluster sizes and rows per tile
+# (csrc/bilstm_stream_fwd.cu: kMaxCluster, kItemRows up to 64); float32's
+# are the sweep's (f32_geometries)
 FWD_CLUSTERS = (1, 2, 4, 8)
 FWD_ROWS = (16, 32, 48, 64)
 _CUDA_ERROR_INVALID_VALUE = 1  # the forward's answer to a geometry that does not fit
@@ -194,8 +208,9 @@ def _unstacked(w, u, b) -> Dict:
     return {d: {"w": w[i], "u": u[i], "b": b[i]} for i, d in enumerate(("fw", "bw"))}
 
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-_FWD_GEOMETRY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+_FWD_GEOMETRY_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p])
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 8
 
 
@@ -217,49 +232,130 @@ def _check(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+def f32_widths(feat: int, hidden: int) -> Tuple[int, int]:
+    """(F, H) as the float32 forward runs them: each zero-padded to a
+    multiple of 8 (its product and sweep move 16-byte chunks of bf16
+    pieces)."""
+    return -(-feat // 8) * 8, -(-hidden // 8) * 8
+
+
+def f32_geometries(feat: int, hidden: int) -> List[Tuple[int, int]]:
+    """Every (cluster, rows) of the sweep whose CTA fits the float32
+    forward at (F, H): the sweep's geometries at the padded H, U in three
+    pieces. F takes no shared memory there."""
+    return sweep_geometries(f32_widths(feat, hidden)[1])
+
+
+def check_f32_width(rows: int, feat: int, hidden: int) -> None:
+    """Raise ValueError where the float32 forward cannot take the widths:
+    no sweep geometry fits the padded H, or the B*T ``rows`` exceed the
+    product's grid."""
+    check_sweep_width(f32_widths(feat, hidden)[1])
+    if -(-rows // _ROW_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"B*T = {rows} rows exceed the float32 forward product's grid")
+
+
+def pad_f32(x, w, u, b):
+    """The stacked operands zero-padded to ``f32_widths``: x (B, T, F'),
+    w (2, F', 4H'), u (2, H', 4H'), b (2, 4H'), each gate's block padded to
+    H' units (the operands themselves where no padding is needed). Exact:
+    a padded unit's columns of W and U and its bias are 0, so its gates are
+    0, its c stays 0 (f * 0 + i * tanh(0)) and its h 0; padded rows of W
+    and U meet zero features of x and zero units of h."""
+    feat, hidden = x.shape[2], u.shape[1]
+    fp, hp = f32_widths(feat, hidden)
+    if (fp, hp) == (feat, hidden):
+        return x, w, u, b
+    pad = torch.nn.functional.pad
+    return (pad(x, (0, fp - feat)),
+            pad(w.reshape(2, feat, 4, hidden), (0, hp - hidden, 0, 0, 0, fp - feat))
+            .reshape(2, fp, 4 * hp),
+            pad(u.reshape(2, hidden, 4, hidden), (0, hp - hidden, 0, 0, 0, hp - hidden))
+            .reshape(2, hp, 4 * hp),
+            pad(b.reshape(2, 4, hidden), (0, hp - hidden)).reshape(2, 4 * hp))
+
+
+def unpad(t: torch.Tensor, hidden: int) -> torch.Tensor:
+    """A (B, T, 2H') output cut back to (B, T, 2H): each direction's first
+    H units."""
+    batch, t_len, width = t.shape
+    if width == 2 * hidden:
+        return t
+    return t.reshape(batch, t_len, 2, width // 2)[..., :hidden].reshape(batch, t_len, 2 * hidden)
+
+
+def _f32_scratch_bytes(rows: int, feat: int, hidden: int) -> int:
+    """The float32 forward's scratch: three bf16 pieces of x (B*T, F) and
+    W (2F, 4H)."""
+    return 2 * 3 * (rows * feat + 2 * feat * 4 * hidden)
+
+
+def _launch(x, w, u, b, *, with_cell: bool, cluster: int = 0, rows: int = 0, chosen=None):
+    """The forward kernel on the card, on checked stacked inputs:
+    (h_out, c_out or None). With ``cluster`` and ``rows`` 0 and ``chosen``
+    None, ``clair_bilstm_stream_fwd`` at the kernel's choice of geometry,
+    raising on any CUDA error; else ``clair_bilstm_stream_fwd_geometry`` at
+    that geometry (0: chosen; ``chosen`` a ctypes int array of 4, or None),
+    giving None where the geometry does not fit. float32 pads the widths
+    (``pad_f32``) and allocates xw and the pieces' scratch. Counts no
+    launch."""
+    batch, t_len, feat = x.shape
+    hidden = u.shape[1]
+    f32 = x.dtype == torch.float32
+    xw = scratch = None
+    if f32:
+        check_f32_width(batch * t_len, feat, hidden)
+        x, w, u, b = pad_f32(x, w, u, b)
+        feat = x.shape[2]
+    width = u.shape[1]
+    h_out = torch.empty((batch, t_len, 2 * width), dtype=x.dtype, device=x.device)
+    c_out = (torch.empty((batch, t_len, 2 * width), dtype=torch.float32, device=x.device)
+             if with_cell else None)
+    if f32:
+        xw = torch.empty((2, t_len, batch, 4 * width), dtype=torch.float32, device=x.device)
+        scratch = torch.empty(_f32_scratch_bytes(batch * t_len, feat, width), dtype=torch.uint8,
+                              device=x.device)
+    args = (x.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(), h_out.data_ptr(),
+            None if c_out is None else c_out.data_ptr(), None if xw is None else xw.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel(), batch, t_len, feat, width, int(not f32))
+    if cluster or rows or chosen is not None:
+        fn = entry(_FWD_KERNEL, "clair_bilstm_stream_fwd_geometry", _FWD_GEOMETRY_ARGTYPES)
+        with torch.cuda.device(x.device):
+            err = fn(*args, cluster, rows, chosen, torch.cuda.current_stream().cuda_stream)
+        if err == _CUDA_ERROR_INVALID_VALUE:
+            return None
+        if err != 0:
+            raise RuntimeError(f"{_FWD_KERNEL} at cluster {cluster}, rows {rows}: "
+                               f"CUDA error {err}")
+    else:
+        launch(_FWD_KERNEL, "clair_bilstm_stream_fwd", _FWD_ARGTYPES, x.device, *args)
+    return unpad(h_out, hidden), None if c_out is None else unpad(c_out, hidden)
+
+
 def _forward(x, w, u, b, with_cell: bool):
     """The forward on stacked parameters: (h_out, c_out or None)."""
     if not on_cuda(x, "bilstm_stream"):
         h_out, c_out = bilstm_stream_reference(_unstacked(w, u, b), x)
         return h_out, (c_out if with_cell else None)
     _check(x, w, u, b)
-    batch, t_len, feat = x.shape
-    hidden = u.shape[1]
-    h_out = torch.empty((batch, t_len, 2 * hidden), dtype=x.dtype, device=x.device)
-    c_out: Optional[torch.Tensor] = (
-        torch.empty((batch, t_len, 2 * hidden), dtype=torch.float32, device=x.device)
-        if with_cell else None
-    )
-    launch(_FWD_KERNEL, "clair_bilstm_stream_fwd", _FWD_ARGTYPES, x.device,
-           x.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(),
-           h_out.data_ptr(), c_out.data_ptr() if with_cell else None,
-           batch, t_len, feat, hidden, int(x.dtype == torch.bfloat16))
+    out = _launch(x, w, u, b, with_cell=with_cell)
     bilstm_stream.launches += 1
-    return h_out, c_out
+    return out
 
 
-def forward_geometry(x, w, u, b, cluster: int, rows: int):
+def forward_geometry(x, w, u, b, cluster: int, rows: int, chosen=None):
     """The forward kernel on stacked parameters at a given cluster size and
-    rows per tile (``clair_bilstm_stream_fwd_geometry``), with the cell
-    states: (h_out, c_out), or None where that geometry does not fit (its
-    weights exceed the cluster's shared memory, or its warp items the
-    warps). Any other CUDA error raises. Counts no launch: it serves the
-    checks of every geometry, not a path."""
+    rows per tile (``clair_bilstm_stream_fwd_geometry``; 0: the kernel's
+    choice, reported through ``chosen``, a ctypes array of 4 ints, when
+    given), with the cell states: (h_out, c_out), or None where that
+    geometry does not fit (its CTA exceeds shared memory or its warp items
+    the warps). bf16 takes ``FWD_CLUSTERS`` x ``FWD_ROWS``, float32 the
+    sweep's ``f32_geometries``. Any other CUDA error raises, and a float32
+    width that no geometry fits raises ValueError. Counts no launch: it
+    serves the checks of every geometry, not a path."""
     _check(x, w, u, b)
-    batch, t_len, feat = x.shape
-    hidden = u.shape[1]
-    h_out = torch.empty((batch, t_len, 2 * hidden), dtype=x.dtype, device=x.device)
-    c_out = torch.empty((batch, t_len, 2 * hidden), dtype=torch.float32, device=x.device)
-    fn = entry(_FWD_KERNEL, "clair_bilstm_stream_fwd_geometry", _FWD_GEOMETRY_ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(), h_out.data_ptr(),
-                 c_out.data_ptr(), batch, t_len, feat, hidden, int(x.dtype == torch.bfloat16),
-                 cluster, rows, None, torch.cuda.current_stream().cuda_stream)
-    if err == _CUDA_ERROR_INVALID_VALUE:
-        return None
-    if err != 0:
-        raise RuntimeError(f"{_FWD_KERNEL} at cluster {cluster}, rows {rows}: CUDA error {err}")
-    return h_out, c_out
+    return _launch(x, w, u, b, with_cell=True, cluster=cluster, rows=rows, chosen=chosen)
 
 
 def _split_rows(rows: int) -> Tuple[int, int]:

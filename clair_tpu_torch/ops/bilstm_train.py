@@ -17,7 +17,7 @@ and W split into three bf16 pieces, xw = xs.W + b for every step at once
 sweep of ``csrc/lstm_sweep.cuh`` (U's pieces held across a thread-block
 cluster, h.U on the tensor cores); ``_forward_launch`` runs them, counting
 nothing, for this module's wrapper and for ``ops/bilstm2.py``, and
-``sweep_layout`` keeps the sweep's shared-memory arithmetic, so a width
+``ops/lstm_sweep.py`` keeps the sweep's shared-memory arithmetic, so a width
 that no geometry fits raises ValueError before a launch. The
 backward is four kernels behind one entry point, built from the streaming
 backward's parts (``csrc/mma_product.cuh``): every step's gates in one
@@ -57,6 +57,7 @@ from clair_tpu_torch.ops.bilstm_stream import (
     _MAX_GRID_Y, _ROW_TILE, KERNEL_PIECES, _split_rows, split_bf16_product,
 )
 from clair_tpu_torch.ops.build import entry, launch, on_cuda
+from clair_tpu_torch.ops.lstm_sweep import check_sweep_width
 
 _KERNEL = "bilstm_train"
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 6
@@ -64,51 +65,6 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 
 _BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 6
 _MAX_HIDDEN = 1024  # the backward's sweep: one thread per hidden unit
 _CUDA_ERROR_INVALID_VALUE = 1  # the forward's answer to a geometry that does not fit
-
-# The forward sweep's geometry (csrc/lstm_sweep.cuh: SweepGeometry, the same
-# arithmetic): cluster sizes, rows per tile, and what a CTA may take.
-SWEEP_CLUSTERS = (2, 4, 8)
-SWEEP_ROWS = tuple(range(8, 129, 8))
-_SMEM_LIMIT = 227 * 1024  # shared memory a block may take on Hopper
-_SWEEP_WARPS, _SWEEP_MAX_ITEMS = 8, 2
-
-
-def sweep_layout(hidden: int, cluster: int, rows: int, u_pieces: int = 3) -> Tuple[int, int]:
-    """(shared-memory bytes, warp items) of one CTA of the forward sweep:
-    U's ``u_pieces`` bf16 pieces (three of a float32 U, one of a bf16 U)
-    for the four gates of its uc = H / C units (rounded up to 8) over the
-    depth C * uc, and two h tiles of three pieces; items of 8 units by 16
-    rows, or 8 where the rows are no multiple of 16."""
-    uc = -(-hidden // (8 * cluster)) * 8
-    hk = cluster * uc
-    item_rows = 16 if rows % 16 == 0 else 8
-    smem = 2 * u_pieces * 4 * uc * hk + 2 * 2 * 3 * rows * hk
-    return smem, uc // 8 * (rows // item_rows)
-
-
-def sweep_geometries(hidden: int, u_pieces: int = 3):
-    """Every (cluster, rows) whose CTA fits: shared memory and warp items.
-    Whether it launches is the card's to say (clusters it holds at once)."""
-    out = []
-    for cluster in SWEEP_CLUSTERS:
-        for rows in SWEEP_ROWS:
-            smem, items = sweep_layout(hidden, cluster, rows, u_pieces)
-            if smem <= _SMEM_LIMIT and items <= _SWEEP_WARPS * _SWEEP_MAX_ITEMS:
-                out.append((cluster, rows))
-    return out
-
-
-def check_sweep_width(hidden: int, u_pieces: int = 3) -> None:
-    """Raise ValueError where the forward sweep cannot take H: no multiple
-    of 8, or no geometry whose CTA fits."""
-    if hidden % 8:
-        raise ValueError(f"the forward sweep takes H in multiples of 8, not H = {hidden}")
-    if not sweep_geometries(hidden, u_pieces):
-        least = sweep_layout(hidden, SWEEP_CLUSTERS[-1], 8, u_pieces)[0]
-        raise ValueError(f"hidden size {hidden}: the forward sweep's CTA needs {least} bytes "
-                         f"of shared memory even at a cluster of {SWEEP_CLUSTERS[-1]} and 8 "
-                         f"rows, above the {_SMEM_LIMIT} a block may take")
-
 
 def _check_sweep(feat: int, hidden: int, rows: int) -> None:
     """Raise before any launch where the forward's kernels cannot take the

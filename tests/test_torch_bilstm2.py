@@ -16,7 +16,8 @@ import clair_tpu_torch.ops.bilstm_train as BT
 from clair_tpu.models.bilstm import init_bilstm_params
 from clair_tpu.ops.pallas_bilstm2 import bilstm2_pallas
 from clair_tpu_torch.ops.bilstm2 import bilstm2, bilstm2_reference
-from clair_tpu_torch.ops.bilstm_train import bilstm_train, sweep_geometries
+from clair_tpu_torch.ops.bilstm_train import bilstm_train
+from clair_tpu_torch.ops.lstm_sweep import sweep_geometries
 
 TOL = 2e-5  # tests/test_pallas_bilstm2.py
 

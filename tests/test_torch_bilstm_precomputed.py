@@ -23,7 +23,7 @@ import clair_tpu_torch.ops.bilstm as B
 from clair_tpu_torch.ops.bilstm import (
     bilstm_precomputed, bilstm_recurrence, bilstm_recurrence_reference, projections, u_pieces,
 )
-from clair_tpu_torch.ops.bilstm_train import SWEEP_CLUSTERS, sweep_geometries, sweep_layout
+from clair_tpu_torch.ops.lstm_sweep import SWEEP_CLUSTERS, sweep_geometries, sweep_layout
 
 GEOMETRIES = [
     (8, 33, 32, 128),      # lstm1 geometry

@@ -15,7 +15,7 @@ from clair_tpu.models.bilstm import bilstm as jax_bilstm
 from clair_tpu_torch.models.bilstm import bilstm, bilstm_with_cell
 from clair_tpu_torch.ops.bilstm_stream import (
     FWD_CLUSTERS, FWD_ROWS, _stack_params, bilstm_stream, bilstm_stream_reference,
-    forward_geometry,
+    f32_geometries, forward_geometry,
 )
 
 GEOMETRIES = [
@@ -161,26 +161,28 @@ def test_cuda_kernel_matches_plain_on_the_card(geometry):
 @pytest.mark.cuda
 @pytest.mark.parametrize("feat", [32, 256])
 def test_cuda_kernel_right_at_every_launchable_geometry(feat):
-    """The forward kernel at every (cluster size, rows per tile) that
-    launches, against the plain version, at a small ragged batch of either
-    layer's width (idle warps at the larger clusters, where a race once
-    hid): h and c within the tolerances above, in both dtypes."""
+    """The forward at every (cluster size, rows per tile) that launches,
+    against the plain version, at a small ragged batch of either layer's
+    width (idle warps at the larger clusters, where a race once hid): h and
+    c within the tolerances above; bf16 over its kernel's geometries,
+    float32 over the sweep's (f32_geometries)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
     params, x = _inputs((100, 33, feat, 128), seed=7)
     tp = {d: {k: v.cuda() for k, v in p.items()} for d, p in _torch_params(params).items()}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    bf16_geometries = [(c, r) for c in FWD_CLUSTERS for r in FWD_ROWS]
+    for dtype, tol, geometries in ((torch.float32, 1e-4, f32_geometries(feat, 128)),
+                                   (torch.bfloat16, 2e-2, bf16_geometries)):
         xd = torch.from_numpy(x).cuda().to(dtype)
         want_h, want_c = bilstm_stream_reference(tp, xd)
         launched = 0
-        for cluster in FWD_CLUSTERS:
-            for rows in FWD_ROWS:
-                got = forward_geometry(xd, *_stack_params(tp, dtype), cluster, rows)
-                if got is None:
-                    continue
-                torch.cuda.synchronize()
-                launched += 1
-                assert (got[0].float() - want_h.float()).abs().max().item() <= tol, (cluster, rows)
-                assert (got[1] - want_c).abs().max().item() <= tol, (cluster, rows)
+        for cluster, rows in geometries:
+            got = forward_geometry(xd, *_stack_params(tp, dtype), cluster, rows)
+            if got is None:
+                continue
+            torch.cuda.synchronize()
+            launched += 1
+            assert (got[0].float() - want_h.float()).abs().max().item() <= tol, (cluster, rows)
+            assert (got[1] - want_c).abs().max().item() <= tol, (cluster, rows)
         assert launched > 0, dtype

@@ -18,10 +18,10 @@ import clair_tpu.ops.pallas_bilstm_train as PT
 import clair_tpu_torch.ops.bilstm_train as BT
 from clair_tpu_torch.models.bilstm import _stack_directions, _unstack_outputs
 from clair_tpu_torch.ops.bilstm_train import (
-    SWEEP_CLUSTERS, _stack_params, bilstm_train, bilstm_train_backward,
-    bilstm_train_backward_reference, bilstm_train_forward, bilstm_train_reference, input_grad,
-    stacked_cotangent, sweep_geometries, sweep_layout,
+    _stack_params, bilstm_train, bilstm_train_backward, bilstm_train_backward_reference,
+    bilstm_train_forward, bilstm_train_reference, input_grad, stacked_cotangent,
 )
+from clair_tpu_torch.ops.lstm_sweep import SWEEP_CLUSTERS, sweep_geometries, sweep_layout
 
 # the geometries of tests/test_pallas_bilstm_train.py
 GEOMETRIES = [

@@ -30,7 +30,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from clair_tpu_torch.ops import bilstm as B  # noqa: E402
 from clair_tpu_torch.ops import build  # noqa: E402
-from clair_tpu_torch.ops.bilstm_train import sweep_geometries  # noqa: E402
+from clair_tpu_torch.ops.lstm_sweep import sweep_geometries  # noqa: E402
 
 
 def launcher(fn, xw, u, cluster, rows, chosen=None):

@@ -1,7 +1,8 @@
 """The port's full-width train step at batch 10,000 in two trees on one
 card, in turns: this tree and another commit's unpacked checkout (parent,
 this, this, parent), each in a process of its own, through each tree's
-chip_smoke.train_step_times on examples/ont_production.ckpt.
+chip_smoke.step_times of chip_smoke.full_width_step on
+examples/ont_production.ckpt.
 
     python3 tools/torch_step_compare.py --parent DIR [--dtypes float32,bfloat16]
                                         [--train_pair] [--kernels]
@@ -14,7 +15,8 @@ through each tree's own wrappers): the two backwards (B = 10,000, both
 layers, dx for lstm2 only), row 6 in float32 and row 2 in bfloat16 and
 float32; the resident forward (row 5, float32, both layers) at B = 10,000
 and at B = 512; bilstm2 (row 4, float32), the streaming forward (row 1,
-bfloat16, both layers) and the recurrence on precomputed projections (row
+bfloat16, both layers; and float32, both layers, at B = 512 and, with c,
+at B = 10,000) and the recurrence on precomputed projections (row
 3, both layers in the bf16 calling default's dtype pairs: lstm1 xw and U
 bf16, lstm2 xw float32 and U bf16) at B = 512; and the model's calling
 forward on examples/ont_production.ckpt at B = 512 in bfloat16, streaming
@@ -38,8 +40,9 @@ import chip_smoke
 from clair_tpu_torch.models.checkpoint import load_checkpoint
 params, _ = load_checkpoint("examples/ont_production.ckpt")
 flags = json.loads(sys.argv[2])
-print(json.dumps({d: chip_smoke.train_step_times(params, torch.device("cuda"), d, **flags)[0]
-                  for d in sys.argv[1].split(",")}))
+print(json.dumps({d: chip_smoke.step_times(
+    chip_smoke.full_width_step(params, torch.device("cuda"), d, **flags))[0]
+    for d in sys.argv[1].split(",")}))
 """
 
 KERNELS = """
@@ -53,7 +56,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 ms = {"row 6 float32": 0.0, "row 2 bfloat16": 0.0, "row 2 float32": 0.0,
       "row 5 float32": 0.0, "row 5 float32 B=512": 0.0, "row 1 bfloat16 B=512": 0.0,
-      "row 3 bfloat16 B=512": 0.0}
+      "row 1 float32 B=512": 0.0, "row 1 float32": 0.0, "row 3 bfloat16 B=512": 0.0}
 for feat in (32, 256):
     p_dtype, x_dtype = cs.PRECOMPUTED_DTYPES[1 if feat == 32 else 2]
     xw, u16 = cs.precomputed_inputs((512, 33, feat, 128), dev, p_dtype, x_dtype, feat + 6)
@@ -65,6 +68,11 @@ for feat in (32, 256):
     w, u, b = _stack_params(cs.lstm_params(rs, feat, 128, dev), torch.bfloat16)
     x = torch.tensor(rs.randn(512, 33, feat), dtype=torch.bfloat16, device=dev)
     ms["row 1 bfloat16 B=512"] += cs.cuda_ms(lambda: _forward(x, w, u, b, with_cell=False))
+    w, u, b = _stack_params(cs.lstm_params(rs, feat, 128, dev), torch.float32)
+    for batch, key in ((512, "row 1 float32 B=512"), (10000, "row 1 float32")):
+        x = torch.tensor(rs.randn(batch, 33, feat), dtype=torch.float32, device=dev)
+        ms[key] += cs.cuda_ms(lambda: _forward(x, w, u, b, with_cell=batch > 512),
+                              5 if batch > 512 else 20)
     need_dx = feat != 32  # lstm1's input takes no gradient
     xs, w, u, b, dh = cs.stacked_inputs((10000, 33, feat, 128), dev, feat + 5)
     h, c = bilstm_train_forward(xs, w, u, b)

@@ -1,6 +1,8 @@
 """Where a step of the streaming BiLSTM forward kernel spends its time: the
-kernel (clair_tpu_torch/csrc/bilstm_stream_fwd.cu) built in variants that
-each cut one part of the step out, timed at fixed geometries.
+bf16 kernel (clair_tpu_torch/csrc/bilstm_stream_fwd.cu) built in variants
+that each cut one part of the step out, timed at fixed geometries. (The
+float32 mode runs the sweep of lstm_sweep.cuh, which
+tools/torch_train_fwd_sweep.py ablates.)
 
     python3 tools/torch_stream_fwd_ablate.py
 
@@ -26,7 +28,7 @@ CSRC = ROOT / "clair_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "stream_fwd_ablate"
 
 H_PRODUCT = ("""                if (step > 0)
-                    product(ws, L, uc, p.fk, hs, L.hp, p.hk, g, r0, hu);
+                    product(ws, L, p.fk, hs, L.hp, p.hk, g, r0, hu);
                 else
                     zero(hu);""", "                zero(hu);")
 X_PRODUCT = ("                input_products(ws, L, p, xs, items, groups, xw);\n            }",
@@ -34,14 +36,16 @@ X_PRODUCT = ("                input_products(ws, L, p, xs, items, groups, xw);\n
 EXCHANGE = ("                    for (int peer = 0; peer < n_ctas; ++peer)",
             "                    for (int peer = 0; peer < 0; ++peer)")
 NONLINEARITIES = [
-    ("gate_sigmoid<T>(a_f) * c_prev + gate_sigmoid<T>(a_i) * gate_tanh<T>(a_g);",
+    ("gate_sigmoid<bf16>(a_f) * c_prev +\n"
+     "                                            gate_sigmoid<bf16>(a_i) * gate_tanh<bf16>(a_g);",
      "a_f * c_prev + a_i * a_g;"),
-    ("from_float<T>(gate_sigmoid<T>(a_o) * gate_tanh<T>(c_new));", "from_float<T>(a_o * c_new);")]
+    ("from_float<bf16>(gate_sigmoid<bf16>(a_o) * gate_tanh<bf16>(c_new));",
+     "from_float<bf16>(a_o * c_new);")]
 OUTPUTS = [("            if (p.vec) {\n                for (int idx = threadIdx.x; idx < p.rows * chunks;",
             "            if (false) {\n                for (int idx = threadIdx.x; idx < p.rows * chunks;"),
            ("            } else {\n                for (int idx = threadIdx.x; idx < p.rows * uc;",
             "            } else if (false) {\n                for (int idx = threadIdx.x; idx < p.rows * uc;")]
-X_STAGING = ("            if (step + 1 < p.t_len) stage_x<T>(p, x, xs, L.xp, row0, dir == 0 ? t + 1 : t - 1);",
+X_STAGING = ("            if (step + 1 < p.t_len) stage_x(p, x, xs, L.xp, row0, dir == 0 ? t + 1 : t - 1);",
              "")
 VARIANTS = {
     "base": [],
@@ -54,11 +58,9 @@ VARIANTS = {
     "barriers and loops only": [H_PRODUCT, X_PRODUCT, EXCHANGE, *NONLINEARITIES, *OUTPUTS,
                                 X_STAGING],
 }
-# (dtype, F, batch, cluster, rows): the layers at the geometries the
-# launcher picks for them on an H100
-CASES = ((torch.bfloat16, 256, 512, 2, 16), (torch.bfloat16, 256, 10_000, 2, 16),
-         (torch.bfloat16, 32, 10_000, 1, 16), (torch.float32, 256, 10_000, 8, 48),
-         (torch.float32, 32, 10_000, 2, 32))
+# (F, batch, cluster, rows): the layers at the geometries the launcher
+# picks for them on an H100
+CASES = ((256, 512, 2, 16), (256, 10_000, 2, 16), (32, 10_000, 1, 16))
 
 
 def build(name, patches):
@@ -98,7 +100,8 @@ def main():
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         libs = dict(zip(VARIANTS, pool.map(lambda kv: build(*kv), VARIANTS.items())))
     dev = torch.device("cuda")
-    for dtype, feat, batch, cluster, rows in CASES:
+    dtype = torch.bfloat16
+    for feat, batch, cluster, rows in CASES:
         rs = np.random.RandomState(0)
         x = torch.tensor(rs.randn(batch, 33, feat), dtype=dtype, device=dev)
         w = torch.tensor(rs.randn(2, feat, 512) * 0.08, dtype=dtype, device=dev)
@@ -109,12 +112,13 @@ def main():
         for name, lib in libs.items():
             fn = lib.clair_bilstm_stream_fwd_geometry
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p] * 2)
 
             def run(fn=fn):
                 return fn(x.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(), h.data_ptr(),
-                          None, batch, 33, feat, 128, int(dtype == torch.bfloat16), cluster, rows,
-                          None, torch.cuda.current_stream().cuda_stream)
+                          None, None, None, 0, batch, 33, feat, 128, 1, cluster, rows, None,
+                          torch.cuda.current_stream().cuda_stream)
             if run() != 0:
                 raise SystemExit(f"{name} does not launch")
             times.append(f"{name} {cuda_ms(run, 20 if batch <= 512 else 5):.4f}")

@@ -1,4 +1,4 @@
-"""The port's streaming BiLSTM forward kernel (clair_tpu_torch/csrc/
+"""The port's streaming BiLSTM forward (clair_tpu_torch/csrc/
 bilstm_stream_fwd.cu) on the card: its compiler report, a check against the
 plain PyTorch version, and its time over cluster sizes and rows per tile.
 
@@ -6,8 +6,12 @@ plain PyTorch version, and its time over cluster sizes and rows per tile.
 
 For each layer width of ``ModelConfig()`` (lstm1: F = 32, lstm2: F = 256;
 H = 128, T = 33), batch and dtype, it prints the time (CUDA events, mean
-after a warm-up) of the geometry the wrapper chooses and of every (cluster,
-rows) that fits, each checked against the plain version first. With
+after a warm-up) of the geometry the wrapper chooses (h alone) and of every
+(cluster, rows) that fits (with c), each checked against the plain version
+first: bf16 over
+its cluster kernel's geometries, float32 over the sweep's
+(``f32_geometries``; its times include the x.W product before the sweep
+and the wrapper's allocation of xw and the pieces' scratch). With
 ``--parent DIR`` (an unpacked checkout of another commit), the same layers
 are also timed there, before and after this tree's, in one process each,
 so two versions are compared on one card. Needs a CUDA card and nvcc.
@@ -29,8 +33,6 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 LAYERS = (("lstm1", 32), ("lstm2", 256))
-CLUSTERS = (1, 2, 4, 8)
-ROWS = (16, 32, 48, 64)
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 
 # run in a checkout of another commit: the same layers through its wrapper
@@ -99,7 +101,8 @@ def main():
     batches = [int(b) for b in args.batches.split(",")]
     from clair_tpu_torch.ops import build
     from clair_tpu_torch.ops.bilstm_stream import (
-        _stack_params, bilstm_stream, bilstm_stream_reference,
+        FWD_CLUSTERS, FWD_ROWS, _stack_params, bilstm_stream, bilstm_stream_reference,
+        f32_geometries, forward_geometry,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -111,10 +114,7 @@ def main():
     parent_before = run_parent(Path(args.parent), batches) if args.parent else None
 
     dev = torch.device("cuda")
-    lib = build.load("bilstm_stream_fwd")
-    fn = lib.clair_bilstm_stream_fwd_geometry
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    bf16_geometries = [(c, r) for c in FWD_CLUSTERS for r in FWD_ROWS]
     results = {}
     wrong = []
     for batch in batches:
@@ -129,38 +129,29 @@ def main():
                 auto = cuda_ms(lambda: bilstm_stream(p, xd), iters)
                 results[tag] = auto
                 chosen = (ctypes.c_int * 4)()
-                h = torch.empty((batch, 33, 256), dtype=dtype, device=dev)
-                assert fn(xd.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(), h.data_ptr(),
-                          None, batch, 33, feat, 128, int(dtype == torch.bfloat16), 0, 0,
-                          chosen, torch.cuda.current_stream().cuda_stream) == 0
+                assert forward_geometry(xd, w, u, b, 0, 0, chosen) is not None
                 print(f"{tag}: wrapper {auto:.4f} ms (cluster {chosen[0]}, rows {chosen[1]}; "
                       f"{chosen[2]} clusters resident, {chosen[3]} launched per direction)")
-                for cluster in CLUSTERS:
-                    for rows in ROWS:
-                        h = torch.empty((batch, 33, 256), dtype=dtype, device=dev)
-                        c = torch.empty((batch, 33, 256), dtype=torch.float32, device=dev)
-                        info = (ctypes.c_int * 4)()
-
-                        def run(c_ptr=c.data_ptr()):
-                            return fn(xd.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(),
-                                      h.data_ptr(), c_ptr, batch, 33, feat, 128,
-                                      int(dtype == torch.bfloat16), cluster, rows, info,
-                                      torch.cuda.current_stream().cuda_stream)
-                        err = run()
-                        torch.cuda.synchronize()
-                        if err != 0:
-                            print(f"  cluster {cluster} rows {rows}: does not launch (error {err})")
-                            continue
-                        eh = (h.float() - h_p.float()).abs().max().item()
-                        ec = (c - c_p).abs().max().item()
-                        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-                        ok = eh <= tol and ec <= tol
-                        ms = cuda_ms(lambda: run(0), iters) if ok else float("nan")
-                        if not ok:
-                            wrong.append((tag, cluster, rows))
-                        print(f"  cluster {cluster} rows {rows}: {ms:.4f} ms, max|dh| {eh:.2e} "
-                              f"max|dc| {ec:.2e}{'' if ok else '  WRONG'}; {info[2]} resident, "
-                              f"{info[3]} per direction")
+                geometries = (f32_geometries(feat, 128) if dtype == torch.float32
+                              else bf16_geometries)
+                for cluster, rows in geometries:
+                    info = (ctypes.c_int * 4)()
+                    got = forward_geometry(xd, w, u, b, cluster, rows, info)
+                    torch.cuda.synchronize()
+                    if got is None:
+                        print(f"  cluster {cluster} rows {rows}: does not launch")
+                        continue
+                    eh = (got[0].float() - h_p.float()).abs().max().item()
+                    ec = (got[1] - c_p).abs().max().item()
+                    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                    ok = eh <= tol and ec <= tol
+                    ms = (cuda_ms(lambda: forward_geometry(xd, w, u, b, cluster, rows), iters)
+                          if ok else float("nan"))
+                    if not ok:
+                        wrong.append((tag, cluster, rows))
+                    print(f"  cluster {cluster} rows {rows}: {ms:.4f} ms, max|dh| {eh:.2e} "
+                          f"max|dc| {ec:.2e}{'' if ok else '  WRONG'}; {info[2]} resident, "
+                          f"{info[3]} per direction")
     if args.parent:
         parent_after = run_parent(Path(args.parent), batches)
         for tag, ms in results.items():

@@ -33,9 +33,11 @@ import sys
 from collections import defaultdict
 from typing import Dict
 
-# the port's kernels on the default training path, by a substring of their
-# names: row 1 the streaming forward, row 2 the streaming backward's four
-KERNEL_ROWS = (("row 1", ("bilstm_stream_fwd_kernel",)),
+# the port's kernels on the streaming training path, by a substring of their
+# names: row 1 the streaming forward (bf16: its kernel; float32: the x.W
+# product and the sweep on its layout), row 2 the streaming backward's four
+# (float32's split of operands into bf16 pieces counts here for both rows)
+KERNEL_ROWS = (("row 1", ("bilstm_stream_fwd_kernel", "StreamXWProblem", "StreamForward")),
                ("row 2", ("bilstm_bwd_sweep", "mma_product", "split_pieces")))
 PARTS = ("row 1", "row 2", "forward", "loss", "backward", "optimizer")
 _CPU_CATS = ("cpu_op", "user_annotation", "python_function")

@@ -34,6 +34,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from clair_tpu_torch.ops import bilstm_train as BT  # noqa: E402
 from clair_tpu_torch.ops import build  # noqa: E402
+from clair_tpu_torch.ops.lstm_sweep import sweep_geometries  # noqa: E402
 
 OUT = ROOT / "build" / "train_fwd_ablate"
 CELL = ("c[sl][j][e] = sigmoid_tanh(a_f) * c[sl][j][e] + sigmoid_tanh(a_i) * tanhf(a_g);\n"
@@ -123,7 +124,7 @@ def main():
             choice[batch] = (chosen[0], chosen[1])
             line = [f"launcher's ({chosen[0]}, {chosen[1]}) {ms:.4f} ms, clusters held "
                     f"{chosen[2]}, launched per direction {chosen[3]}"]
-            for cluster, rows in BT.sweep_geometries(cs.HIDDEN):
+            for cluster, rows in sweep_geometries(cs.HIDDEN):
                 launch, got = run_forward(base, xs, w, u, b, cluster, rows)
                 try:
                     launch()
