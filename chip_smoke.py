@@ -8,7 +8,8 @@ Phases, each printing its results and seconds:
 
 1. the card (nvidia-smi name and power limit); no CUDA device -> exit 1
 2. build every kernel in clair_tpu_torch/csrc/ (one nvcc each, all at once)
-3. the streaming forward kernel against its plain PyTorch version, and at
+3. the streaming forward kernel against its plain PyTorch version (at the
+   calling, training and phase 11's shapes), and at
    every launchable (cluster size, rows per tile) at a small batch: bf16
    over its cluster kernel's geometries, float32 over the sweep's
    3b. the resident train pair (use_pallas_train_bilstm) against its plain
@@ -96,6 +97,22 @@ Phases, each printing its results and seconds:
         launching); three full-width Adam steps of the scan, card vs CPU;
         its train step at B = 10,000 and its peak memory, beside the
         streaming pair's step
+11. the repo's train-to-accuracy recipes on the card, in this process, every
+   launch count set to 0 just before each run and read just after:
+   11a. ``demo.run_demo`` at ``--quick --profile ont`` (30 kb, 150 planted
+        variants, 400 epochs of the narrow model, H = 32, bfloat16): recall
+        at the demo's floor; precision, exact and the SNP/indel split
+   11b. ``examples.train_synthetic.main --profile ont --train_compute_dtype
+        float32`` (the vendored checkpoints' recipe: 150 kb, 700 variants,
+        the full-width model, 400 epochs at batch 256), its checkpoint in the
+        JAX layout, and its held-out genome (seed 424243, 30 kb) at the
+        vendored models' floors (recall and precision 0.9, exact 0.85 n)
+   In both, row 2 launches twice a train step, row 1 at least twice a train
+   and a validation step, no other kernel and never the scan; the bin's
+   short last training batch is the one phases 3 and 4 check.
+   11c. the vendored ccs and ilmn models on their held-out genomes (seed
+        424242, 30 kb) and the production model on its 40 kb held-out
+        flowcell, at tests/test_trained_model_e2e.py's floors
 9. times (CUDA events after warm-up) beside the card's name and power limit;
    the streaming forward per layer at B = 512 and 10,000 in both dtypes
    (float32 beside the float32 FMA kernel's times that the sweep replaced);
@@ -113,9 +130,10 @@ Phases, each printing its results and seconds:
 
 Each run of phases 7, 7b, 7c, 8, 8b, 8c and 10a-10g runs in a process of
 its own, so the launch counts it reports start from 0 just before it and
-are read just after it; the processes a run spawns (7c's pool workers,
-10d's and 10f's ranks) return their counts, which the run adds to its own. 9c sets
-bilstm2's count to 0 just before its call. Any failed
+are read just after it (phase 11's runs set them to 0 in this process);
+the processes a run spawns (7c's pool workers, 10d's and 10f's ranks)
+return their counts, which the run adds to its own. 9c sets bilstm2's
+count to 0 just before its call. Any failed
 phase raises, so the script exits non-zero without the last line. The last
 two lines are a JSON summary of the kernels and the device line
 ``{"ok": true, "device": {...}}``. Nothing here imports JAX or the JAX
@@ -123,6 +141,7 @@ package; phase 2 also builds the port's native host library (C++ pileup and
 decode) and says whether it loaded.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -181,13 +200,23 @@ TRAIN_PAIR = ("bilstm_train", "bilstm_train_backward")
 # forward kernel vs plain on the card: float32 sums run in another order
 # over 33 steps; bf16 h is rounded to a 2**-8 step every step (h and c)
 F32_TOL, BF16_TOL = 1e-4, 2e-2
+# phase 11's recipes at their batches: training at 256, validation at 32,
+# calling at 256, at full width (H = 128) and at the demo's narrow width
+# (H = 32: lstm1 F = 32, lstm2 F = 64); and the short last training batch
+# of each recipe's bin (n_train % 256 of the 1,753-row 11b bin and of the
+# 459-row 11a bin; phase 11 asserts them)
+SYNTHETIC_SHORT_BATCH, DEMO_SHORT_BATCH = 41, 157
+RECIPE_GEOMETRIES = ((256, 33, 32, 128), (256, 33, 256, 128), (32, 33, 256, 128),
+                     (256, 33, 32, 32), (256, 33, 64, 32), (32, 33, 64, 32),
+                     (SYNTHETIC_SHORT_BATCH, 33, 32, 128), (SYNTHETIC_SHORT_BATCH, 33, 256, 128),
+                     (DEMO_SHORT_BATCH, 33, 32, 32), (DEMO_SHORT_BATCH, 33, 64, 32))
 # the forward at the shapes the calling path (B = 512) and the training path
 # (B = 10,000, c saved for the backward) give it, a batch of 12, a ragged
 # batch of 13 (no multiple of the 4-row tile), a tiny odd geometry and F and
-# H no multiples of 8 (float32 pads them)
+# H no multiples of 8 (float32 pads them), and the recipes' shapes
 FWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 32, 128),
                   (10000, 33, 256, 128), (12, 33, 32, 128), (13, 33, 256, 128),
-                  (8, 7, 16, 8), (13, 9, 12, 20))
+                  (8, 7, 16, 8), (13, 9, 12, 20), *RECIPE_GEOMETRIES)
 # backward kernel vs plain: float32 max |diff| of each gradient within this
 # share of the reference's max |value| (the 3e-4 family of
 # tests/test_pallas_bilstm_stream.py; sums over up to 330,000 rows in
@@ -219,7 +248,7 @@ BITWISE_GEOMETRY = (10000, 33, 256, 128)
 # the forward at every launchable geometry: one small ragged batch
 GEOMETRY_BATCH = 100
 BWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 256, 128),
-                  (13, 33, 256, 128), (8, 7, 16, 8))
+                  (13, 33, 256, 128), (8, 7, 16, 8), *RECIPE_GEOMETRIES)
 # the train pair at the training batch (10,000) and at 512 for both layers,
 # a ragged batch (13, no multiple of the sweeps' 8- and 16-row tiles) and a
 # tiny odd geometry;
@@ -2004,6 +2033,167 @@ def yardsticks(dev):
     return bounds, library, f32_mode
 
 
+# phase 11: each recipe's epochs and batches (demo.py --quick and
+# examples/train_synthetic.py), and the floors of
+# tests/test_trained_model_e2e.py:69-71 (the per-platform models) and
+# :111-115 (the production model); the demo's is demo.recall_floor
+RECIPE_EPOCHS, RECIPE_BATCH, RECIPE_VAL_BATCH = 400, 256, 32
+HELD_OUT_RECALL = HELD_OUT_PRECISION = 0.9
+HELD_OUT_EXACT_SHARE = 0.85
+PRODUCTION_RECALL, PRODUCTION_PRECISION, PRODUCTION_EXACT_SHARE = 0.93, 0.6, 0.9
+
+
+@contextlib.contextmanager
+def recipe_run():
+    """Around one recipe's run: every launch count set to 0 just before
+    it; each train_model call's bin size and batches recorded, and the scan
+    BiLSTM's calls counted (the recipe must not reach it)."""
+    import clair_tpu_torch.models.clair as clair
+    import clair_tpu_torch.pipeline.train as train
+    from clair_tpu_torch.ops import reset_launch_counts
+
+    seen = {"bins": [], "scan_calls": 0}
+    scan, train_model = clair.bilstm_scan, train.train_model
+
+    def counting_scan(*args, **kwargs):
+        seen["scan_calls"] += 1
+        return scan(*args, **kwargs)
+
+    def recording_train_model(dataset, config):
+        seen["bins"].append((dataset.dataset_size, config.train_batch_size,
+                             config.val_batch_size, config.max_epochs))
+        return train_model(dataset, config)
+
+    clair.bilstm_scan, train.train_model = counting_scan, recording_train_model
+    try:
+        reset_launch_counts()
+        yield seen
+    finally:
+        clair.bilstm_scan, train.train_model = scan, train_model
+
+
+def check_recipe_launches(seen, launches, short_batch):
+    """Every train step of the run went through rows 1 and 2: two backward
+    launches a step (one a layer), at least two forward launches a train
+    and a validation step, no scan; the bin's short last training batch is
+    the one phases 3 and 4 checked. Returns the train steps."""
+    from clair_tpu_torch.params import TRAINING_DATASET_PERCENTAGE
+
+    (size, batch, val_batch, epochs), = seen["bins"]
+    assert (batch, val_batch, epochs) == (RECIPE_BATCH, RECIPE_VAL_BATCH, RECIPE_EPOCHS)
+    n_train = int(size * TRAINING_DATASET_PERCENTAGE)
+    assert n_train % batch == short_batch, (size, n_train, short_batch)
+    steps = epochs * math.ceil(n_train / batch)
+    val_steps = epochs * math.ceil((size - n_train) / val_batch)
+    assert launches["bilstm_stream_backward"] == 2 * steps, (launches, steps)
+    assert launches["bilstm_stream"] >= 2 * (steps + val_steps), (launches, steps, val_steps)
+    assert seen["scan_calls"] == 0, seen
+    assert all(launches[k] == 0 for k in KERNELS if k not in STREAM_PAIR), launches
+    return steps, val_steps, size
+
+
+def recipe_demo(tmp: Path, card):
+    """Phase 11a: the demo at ``--quick --profile ont`` (30 kb, 150 planted
+    variants, ONT reads at 60x, 400 epochs of the narrow model, H = 32, in
+    the training default bfloat16) on the card, held to its recall floor."""
+    from clair_tpu_torch import demo
+
+    with recipe_run() as seen:
+        started = time.perf_counter()
+        stats = demo.run_demo(work_dir=str(tmp / "demo"), **demo.demo_kwargs(True, "ont"))
+        wall = time.perf_counter() - started
+        launches = kernel_counts()
+    steps, val_steps, size = check_recipe_launches(seen, launches, DEMO_SHORT_BATCH)
+    snp, indel = stats["snp"], stats["indel"]
+    print(f"  demo --quick --profile ont: bin {size} rows, {steps} train steps and {val_steps} "
+          f"validation steps; recall {stats['recall']:.4f}, precision {stats['precision']:.4f}, "
+          f"exact {stats['exact']}/{stats['n_truth']}, {stats['n_called']} calls; SNP P "
+          f"{snp['precision']:.4f} R {snp['recall']:.4f} F1 {snp['f1']:.4f} | indel P "
+          f"{indel['precision']:.4f} R {indel['recall']:.4f} F1 {indel['f1']:.4f}; kernel "
+          f"launches {launches}, no scan; wall {wall:.2f} s on {card}")
+    floor = demo.recall_floor("ont")
+    assert stats["recall"] >= floor, (stats["recall"], floor)
+    return {k: launches[k] for k in STREAM_PAIR}
+
+
+def recipe_synthetic(tmp: Path, card):
+    """Phase 11b: ``train_synthetic --profile ont --train_compute_dtype
+    float32`` (the vendored checkpoints' recipe: 150 kb, 700 planted
+    variants, the full-width model, 400 epochs at batch 256, fixed 1e-3,
+    final-epoch parameters) on the card, then its held-out genome (seed
+    424243, 30 kb) called on the card; the floors of the vendored models."""
+    from clair_tpu_torch.examples import train_synthetic
+    from clair_tpu_torch.models.checkpoint import load_checkpoint
+    from clair_tpu_torch.models.clair import ClairNet
+    from clair_tpu_torch.params import ModelConfig
+
+    output = tmp / "ont_synthetic.ckpt"
+    with recipe_run() as seen:
+        out = train_synthetic.main(["--profile", "ont", "--train_compute_dtype", "float32",
+                                    "--output", str(output)])
+        launches = kernel_counts()
+    steps, val_steps, size = check_recipe_launches(seen, launches, SYNTHETIC_SHORT_BATCH)
+    params, extra = load_checkpoint(str(output))
+    assert extra == {"epoch": RECIPE_EPOCHS}, extra
+    # the JAX layout at full width: every leaf loads into the model
+    ClairNet.from_jax(params, ModelConfig(), "cpu")
+    losses = [v for v, _ in out["result"].validation_losses]
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], losses
+    recall, precision, exact, n = out["recall"], out["precision"], out["exact"], out["n"]
+    print(f"  train_synthetic --profile ont float32: bin {size} rows ({out['n_truth']} planted "
+          f"variants), {steps} train steps and {val_steps} validation steps, validation loss "
+          f"sums {losses[0]:.4f} (epoch 1) -> {losses[-1]:.4f} (epoch {len(losses)}); held-out "
+          f"recall {recall:.4f}, precision {precision:.4f}, exact {exact}/{n}; kernel launches "
+          f"{launches}, no scan; data {out['data_seconds']:.2f} s, train "
+          f"{out['train_seconds']:.2f} s ({out['train_seconds'] / RECIPE_EPOCHS * 1e3:.3f} ms an "
+          f"epoch), held-out {out['held_out_seconds']:.2f} s on {card}")
+    assert recall >= HELD_OUT_RECALL and precision >= HELD_OUT_PRECISION, (recall, precision)
+    assert exact >= HELD_OUT_EXACT_SHARE * n, (exact, n)
+    return {k: launches[k] for k in STREAM_PAIR}
+
+
+def vendored_held_out(tmp: Path, card):
+    """Phase 11c: the vendored ccs and ilmn models on their held-out
+    genomes (seed 424242, 30 kb) and the production model on its 40 kb
+    held-out flowcell (seed 626262), called on the card at batch 256, as
+    tests/test_trained_model_e2e.py calls them, with its floors."""
+    from clair_tpu_torch.examples.simulated import (
+        call_and_score, simulate_flowcell, simulate_genome,
+    )
+    from clair_tpu_torch.models.checkpoint import load_checkpoint
+    from clair_tpu_torch.params import ModelConfig
+    from clair_tpu_torch.utils.simulate import PLATFORM_RECIPES
+
+    runs = [(f"{p}_synthetic", (HELD_OUT_RECALL, HELD_OUT_PRECISION, HELD_OUT_EXACT_SHARE),
+             lambda d, p=p: simulate_genome(d, PLATFORM_RECIPES[p], 424242, 30_000, 120))
+            for p in ("ccs", "ilmn")]
+    runs.append(("ont_production", (PRODUCTION_RECALL, PRODUCTION_PRECISION,
+                                    PRODUCTION_EXACT_SHARE),
+                 lambda d: simulate_flowcell(d, 626262, 40, "ont", 35)))
+    launched = {}
+    for name, (recall_floor, precision_floor, exact_share), simulate in runs:
+        params, _ = load_checkpoint(str(ROOT / "examples" / f"{name}.ckpt"))
+        work = tmp / name
+        work.mkdir()
+        started = time.perf_counter()
+        fasta, bam, variants = simulate(str(work))
+        simulated = time.perf_counter() - started
+        with recipe_run():
+            started = time.perf_counter()
+            recall, precision, exact, n = call_and_score(
+                bam, fasta, variants, params, ModelConfig(), batch_size=256, device="cuda")
+            wall = time.perf_counter() - started
+            launches = kernel_counts()
+        print(f"  {name}.ckpt on its held-out genome: recall {recall:.4f}, precision "
+              f"{precision:.4f}, exact {exact}/{n}; kernel launches {launches}; simulate "
+              f"{simulated:.2f} s, call {wall:.2f} s on {card}")
+        assert launches["bilstm_stream"] > 0, launches
+        assert recall >= recall_floor and precision >= precision_floor, (name, recall, precision)
+        assert exact >= exact_share * n, (name, exact, n)
+        launched[name] = {k: launches[k] for k in STREAM_PAIR}
+    return launched
+
+
 def main():
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2168,6 +2358,21 @@ def main():
             new_paths["train --no_stream_bilstm"] = scan_bilstm(params, bin_fn, dev, trains, card)
             phase("10g the scan BiLSTM", t)
 
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as recipe_dir:
+        tmp = Path(recipe_dir)
+        t = time.perf_counter()
+        recipe_paths = {"demo --quick --profile ont": recipe_demo(tmp, card)}
+        phase("11a demo --quick --profile ont", t)
+
+        t = time.perf_counter()
+        recipe_paths["train_synthetic --profile ont float32"] = recipe_synthetic(tmp, card)
+        phase("11b train_synthetic, full width, float32, and its held-out genome", t)
+
+        t = time.perf_counter()
+        recipe_paths.update(vendored_held_out(tmp, card))
+        phase("11c the vendored ccs, ilmn and production models on held-out genomes", t)
+
     t = time.perf_counter()
     from clair_tpu_torch.models.bilstm import bilstm_with_cell
     from clair_tpu_torch.models.clair import ClairNet
@@ -2277,6 +2482,8 @@ def main():
     assert "jax" not in sys.modules
     print(f"launches on the phase-10 paths (each run's, rows 1 and 2 only): "
           f"{json.dumps({k: {r: v[r] for r in STREAM_PAIR} for k, v in new_paths.items()})}")
+    print(f"launches on the phase-11 paths (each run's, rows 1 and 2 only): "
+          f"{json.dumps(recipe_paths)}")
     print(f"card: {card}")
     # each kernel's launches in the run of the path that carries it
     launches = {**{k: trains["bfloat16"][0]["kernel_launches"][k] for k in STREAM_PAIR},

@@ -2,16 +2,19 @@
 (``<wrapper>.launches``) and runs its plain PyTorch version on CPU tensors."""
 
 
-def launch_counts() -> dict:
-    """Each kernel wrapper's name and its launches so far in this process."""
+def _wrappers() -> tuple:
     from clair_tpu_torch.ops.bilstm import bilstm_precomputed
     from clair_tpu_torch.ops.bilstm2 import bilstm2
     from clair_tpu_torch.ops.bilstm_stream import bilstm_stream, bilstm_stream_backward
     from clair_tpu_torch.ops.bilstm_train import bilstm_train, bilstm_train_backward
 
-    wrappers = (bilstm_stream, bilstm_stream_backward, bilstm_train, bilstm_train_backward,
-                bilstm_precomputed, bilstm2)
-    return {fn.__name__: fn.launches for fn in wrappers}
+    return (bilstm_stream, bilstm_stream_backward, bilstm_train, bilstm_train_backward,
+            bilstm_precomputed, bilstm2)
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's name and its launches so far in this process."""
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 def launches_since(before: dict) -> dict:
@@ -24,3 +27,9 @@ def add_launches(total: dict, launches: dict) -> None:
     ``total``."""
     for name, count in launches.items():
         total[name] = total.get(name, 0) + count
+
+
+def reset_launch_counts() -> None:
+    """Set every wrapper's launch count to 0."""
+    for fn in _wrappers():
+        fn.launches = 0

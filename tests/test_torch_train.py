@@ -70,15 +70,20 @@ def _batch(rs, n, positions=33):
     return x, y
 
 
-def _bin(tmp_path, n=60, block=10, seed=0, positions=33):
-    """A learnable JAX-written bin (the genotype shows in x's SNP channel)."""
+def _bin(tmp_path, n=60, block=10, seed=0, positions=33, flip_validation=False):
+    """A learnable JAX-written bin (the genotype shows in x's SNP channel).
+    ``flip_validation``: the rows past the training split's 90% carry the
+    other genotype's labels, so that what the model learns raises the
+    validation loss."""
     rs = np.random.RandomState(seed)
     x, y = _batch(rs, n, positions)
     hom = np.arange(n) % 2 == 1
+    x[hom, :, :, 3] += 20
+    if flip_validation:
+        hom = hom ^ (np.arange(n) >= int(n * 0.9))
     y[:, :24] = 0.0
     y[~hom, 0] = y[hom, 6] = 1.0        # gt21 AA / GG
     y[~hom, 21] = y[hom, 22] = 1.0      # genotype
-    x[hom, :, :, 3] += 20
     offs = range(0, n, block)
     ds = jax_bins.BinDataset(
         n, [jax_bins._pack(x[o:o + block]) for o in offs],
@@ -299,6 +304,50 @@ def test_train_model_matches_jax_train_model(tmp_path, monkeypatch):
         for (name, a), (_, b) in zip(_leaves(port_written[0]), _leaves(jax_written[0])):
             assert a.shape == b.shape, name
         ClairNet.from_jax(jax_written[0], SHORT)
+
+
+def test_adaptive_schedule_matches_jax_train_model(tmp_path, monkeypatch):
+    """The adaptive schedule (the production recipe's) from one init
+    checkpoint, f32, dropout off, 11 positions, on a bin whose validation
+    rows carry the other genotype's labels, so that the validation loss
+    turns up as the model learns: per-epoch loss sums within rtol 1e-3 of
+    the JAX loop's, the same learning rate in each epoch's checkpoint (one
+    switch, after epoch 10), the same best epoch, and its checkpoint's
+    parameters returned (restore_best), then evaluate_at_end on both
+    sides."""
+    from clair_tpu.pipeline.train import TrainingConfig as JaxTrainingConfig
+    from clair_tpu.pipeline.train import train_model as jax_train_model
+
+    monkeypatch.setenv("CLAIR_TPU_JAX_CACHE", str(tmp_path / "jax_cache"))
+    path = _bin(tmp_path, positions=11, flip_validation=True)
+    init = checkpoint_path(str(tmp_path / "init"), 0)
+    save_checkpoint(init, init_params(torch.Generator().manual_seed(9), SHORT))
+    common = dict(init_checkpoint=init, learning_rate=5e-3, train_batch_size=18,
+                  val_batch_size=6, schedule="adaptive", hard_max_epochs=12,
+                  restore_best=True, evaluate_at_end=True, train_compute_dtype="float32",
+                  decompress_workers=0)
+    want = jax_train_model(jax_bins.load_bin(path), JaxTrainingConfig(
+        model=jax_config(SHORT), output_prefix=str(tmp_path / "jax"), **common))
+    got = train_model(bins.load_bin(path), TrainingConfig(
+        model=SHORT, output_prefix=str(tmp_path / "port"), device="cpu", **common))
+
+    epochs = list(range(1, 13))
+    assert [e for _, e in got.training_losses] == [e for _, e in want.training_losses] == epochs
+    for g, w in ((got.training_losses, want.training_losses),
+                 (got.validation_losses, want.validation_losses)):
+        np.testing.assert_allclose([v for v, _ in g], [v for v, _ in w], rtol=1e-3)
+    rates = {name: [load(checkpoint_path(str(tmp_path / name), e))[1]["learning_rate"]
+                    for e in epochs]
+             for name, load in (("port", load_checkpoint), ("jax", jax_ckpt.load_checkpoint))}
+    assert rates["port"] == rates["jax"]
+    assert rates["port"] == [5e-3] * 10 + [pytest.approx(5e-4)] * 2, rates["port"]
+    assert got.best_epoch == want.best_epoch
+    assert 1 < got.best_epoch < 10, got.validation_losses
+    best, _ = load_checkpoint(checkpoint_path(str(tmp_path / "port"), got.best_epoch))
+    for (name, a), (_, b) in zip(_leaves(got.params), _leaves(best)):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    for (name, a), (_, b) in zip(_leaves(got.params), _leaves(_numpy(want.params))):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-5, err_msg=name)
 
 
 def test_train_command_on_a_jax_written_bin(tmp_path, capsys):
