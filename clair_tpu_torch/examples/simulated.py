@@ -7,10 +7,10 @@ from __future__ import annotations
 
 import os
 import tempfile
-from pathlib import Path
 
 import numpy as np
 
+from clair_tpu_torch.build_root import build_root
 from clair_tpu_torch.data.bins import BinDataset, build_bin_from_tensors
 from clair_tpu_torch.data.candidates import CandidateConfig, candidate_sites_from_events
 from clair_tpu_torch.data.pairing import pair_with_non_variants
@@ -23,8 +23,9 @@ from clair_tpu_torch.utils import simulate
 from clair_tpu_torch.utils.simulate import write_truth_vcf
 
 # where the recipes write their checkpoints by default (the vendored ones
-# in examples/ stay as they are)
-OUTPUT_DIR = Path(__file__).resolve().parents[2] / "build" / "clair_tpu_torch" / "examples"
+# in examples/ stay as they are): build/clair_tpu_torch/examples/ in a
+# checkout, clair_tpu_torch/_build/examples/ where the port is installed
+OUTPUT_DIR = build_root() / "examples"
 CONTIG = "chr1"
 CHAIN_FILES = ("ref.fa", "sample.bam", "truth.vcf", "truth.var", "var_tensors.txt",
                "can_tensors.txt", "paired.txt")

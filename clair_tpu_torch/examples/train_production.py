@@ -80,7 +80,8 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=21)
     parser.add_argument("--hard_max_epochs", type=int, default=200)
     parser.add_argument("--output", default=None,
-                        help="default: build/clair_tpu_torch/examples/<platform>_production.ckpt")
+                        help="default: build/clair_tpu_torch/examples/<platform>_production.ckpt "
+                             "in a checkout, clair_tpu_torch/_build/examples/ where installed")
     parser.add_argument("--train_compute_dtype", default=None,
                         choices=["float32", "bfloat16"],
                         help="default: the TrainingConfig default (bfloat16)")

@@ -9,8 +9,10 @@ never saw (another seed) and scored against its planted variants.
 
     python -m clair_tpu_torch.examples.train_synthetic --profile ont|ccs|ilmn
 
-writes ``build/clair_tpu_torch/examples/<profile>_synthetic.ckpt`` (the
-JAX package's checkpoint layout; ``--output`` elsewhere) and prints the
+writes ``build/clair_tpu_torch/examples/<profile>_synthetic.ckpt`` in a
+checkout, ``clair_tpu_torch/_build/examples/<profile>_synthetic.ckpt``
+where the port is installed (the JAX package's checkpoint layout;
+``--output`` elsewhere) and prints the
 held-out recall, precision and exact allele matches. The recipe: 150 kb
 genome, 700 planted variants, 400 epochs at train batch 256, fixed 1e-3,
 final-epoch parameters (the small validation split is too noisy to pick a
@@ -75,7 +77,8 @@ def parse_args(argv=None):
     parser.add_argument("--n_variants", type=int, default=700)
     parser.add_argument("--seed", type=int, default=11)
     parser.add_argument("--output", default=None,
-                        help="default: build/clair_tpu_torch/examples/<profile>_synthetic.ckpt")
+                        help="default: build/clair_tpu_torch/examples/<profile>_synthetic.ckpt "
+                             "in a checkout, clair_tpu_torch/_build/examples/ where installed")
     parser.add_argument("--train_compute_dtype", default=None,
                         choices=["float32", "bfloat16"],
                         help="default: the TrainingConfig default (bfloat16 "

@@ -1,7 +1,9 @@
 """ctypes binding for the native BAM->events engine (clair_native.cpp).
 
 The library is built on first use (g++ is part of the environment) into
-build/clair_tpu_torch/native/ beside the package, under a name that carries
+build/clair_tpu_torch/native/ beside the package in a checkout, or into the
+package's own _build/native/ where it is installed (build_root.py), under a
+name that carries
 a hash of the sources and of the host (it is built with -march=native), so
 an edited source or another machine rebuilds; all callers fall back to the
 pure-Python/numpy path in clair_tpu_torch.data.pileup when the toolchain or
@@ -21,9 +23,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from clair_tpu_torch.build_root import build_root as _build_root
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "clair_tpu_torch",
-                          "native")
+_BUILD_DIR = str(_build_root() / "native")
 _lib = None
 _build_failed = False
 # seconds this process spent building the library (None: it built none),

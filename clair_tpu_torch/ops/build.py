@@ -3,7 +3,8 @@
 Each ``clair_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The build happens
 at first use, on the machine with the card, into ``build/clair_tpu_torch/``
-beside the package; the library's file name carries a hash of the sources
+beside the package in a checkout, or the package's own ``_build/`` where it
+is installed (``build_root.py``); the library's file name carries a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one loads the
 library already built. A failed build raises with the compiler's output.
 ``launch`` calls a kernel's C entry point on a tensor's current stream and
@@ -22,8 +23,10 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from clair_tpu_torch.build_root import build_root
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "clair_tpu_torch"
+BUILD_DIR = build_root()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of it, and not chip_smoke.py, imports the
-JAX package or JAX (checked on the sources), and in a fresh interpreter
+"""The port stands alone: no file of it, not chip_smoke.py and no tool of it
+(tools/torch_*.py) imports the JAX package or JAX (checked on the
+sources), and in a fresh interpreter
 that imports every module of the port and runs its call_bam on the CPU
 over a tiny simulated genome, no module of the JAX package, no jax and no
 zstandard binding (the machine with the card lacks it) is loaded."""
@@ -55,14 +56,20 @@ def test_port_imports_no_jax():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+def _tools():
+    return sorted((ROOT / "tools").glob("torch_*.py"))
+
+
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + _tools()
 
 
 def test_no_port_source_imports_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.MULTILINE)
     sources = _sources()
     assert len(sources) >= 60
+    names = {p.name for p in _tools()}
+    assert {"torch_qual_sweep.py", "torch_fuzz_native.py", "torch_step_compare.py"} <= names
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
 
