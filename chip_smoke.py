@@ -15,8 +15,10 @@ Phases, each printing its results and seconds:
    3b. the resident train pair (use_pallas_train_bilstm) against its plain
        versions and torch.autograd, and two backward runs bit for bit, at
        every TRAIN_GEOMETRIES geometry; its forward at every launchable
-       (cluster size, rows per tile) of the sweep at a small batch; a CUDA
-       width the kernels do not take raises
+       (cluster size, rows per tile) of the sweep at a small batch, and its
+       backward at every geometry of the reverse sweep that fits (each
+       must launch) at that batch and at H = 8; a CUDA width the kernels do
+       not take raises
    3c. use_pallas_bilstm's recurrence kernel (the sweep on the caller's
        xw) against its plain version in the three dtype pairs the model
        gives it, at the launcher's geometry and at every launchable
@@ -26,7 +28,10 @@ Phases, each printing its results and seconds:
        BILSTM2_BATCHES batch and every launchable sweep geometry
 4. the streaming backward kernel against its plain PyTorch version, and
    against torch.autograd of the plain forward, on the card; two runs at
-   the training shape of lstm2 bit for bit
+   the training shape of lstm2 bit for bit; its float32 mode at every
+   geometry of the reverse sweep that fits (each must launch) at a small
+   batch and at H = 8;
+   a float32 width the reverse sweep does not take raises
 5. the full-width forward of examples/ont_production.ckpt on the card
    against the plain forward on the CPU, float32, batch 512
 6. three full-width Adam steps of make_train_step on the card (kernels)
@@ -120,13 +125,14 @@ Phases, each printing its results and seconds:
    under use_pallas_bilstm; the train step and its peak memory
    9a. the two backwards (rows 2 and 6) and the float32 forwards (row 5,
        and row 1's float32 mode) split by kernel (torch.profiler) at
-       B = 10,000
+       B = 10,000; the float32 reverse sweep of rows 2 and 6 beside the
+       float32 FMA sweep's times that it replaced
    9b. the other kernels' times, and the train step under each training pair
    9c. bilstm2 as a library call on the vendored checkpoint's two layers
    9d. each kernel's bound (the least time the card could take for its
        work) and the time of the one PyTorch call that computes the same
        function, where there is one (torch.nn.LSTM, cuDNN, TF32 off); row
-       1's float32 mode too, at B = 512 and 10,000
+       1's float32 mode too, at B = 512 and 10,000, and row 2's at 10,000
 
 Each run of phases 7, 7b, 7c, 8, 8b, 8c and 10a-10g runs in a process of
 its own, so the launch counts it reports start from 0 just before it and
@@ -271,6 +277,16 @@ LAYERS = (("lstm1", 32), ("lstm2", 256))
 # NVIDIA H100 80GB HBM3 at 700 W, beside which phase 9 prints the sweep's
 ROW1_F32_FMA_MS = {("lstm1", 512): 0.2576, ("lstm2", 512): 0.9695,
                    ("lstm1", 10_000): 4.6980, ("lstm2", 10_000): 14.5463}
+# the float32 reverse sweep of rows 2 and 6 as the float32 FMA sweep ran it
+# before the cluster sweep, ms a layer at B = 10,000
+# (tools/torch_stream_bwd_parts.py on an NVIDIA H100 80GB HBM3 at 700 W),
+# beside which phase 9a prints the cluster sweep's
+FMA_SWEEP_MS = {(2, "lstm1"): 5.355, (2, "lstm2"): 5.381,
+                (6, "lstm1"): 5.442, (6, "lstm2"): 5.262}
+# the reverse sweep at every geometry that fits: both layers' widths at
+# GEOMETRY_BATCH, and the tiny odd geometry (H = 8)
+BWD_SWEEP_SHAPES = ((GEOMETRY_BATCH, T_LEN, 32, HIDDEN), (GEOMETRY_BATCH, T_LEN, 256, HIDDEN),
+                    (8, 7, 16, 8))
 
 # calling under use_pallas_bilstm, in a process of its own (phase 7b)
 CALL_SCRIPT = """
@@ -651,18 +667,26 @@ def check_train_pair(dev):
     assert launched["bilstm_train"] == len(TRAIN_GEOMETRIES), launched
     assert launched["bilstm_train_backward"] == 2 * len(TRAIN_GEOMETRIES), launched
     errs["bilstm_train"] = max(errs["bilstm_train"], check_sweep_geometries(dev))
+    errs["bilstm_train_backward"] = max(errs["bilstm_train_backward"],
+                                        check_bwd_sweep_geometries(dev, TRAIN_PAIR))
     # no fallback to the plain version for a CUDA tensor: a width whose
-    # 16-byte chunks the products cannot stage raises, in both kernels
-    xs, w, u, b, dh = stacked_inputs((4, 5, 12, 8), dev, 7)
-    h_out, c_out = bilstm_train_reference(xs, w, u, b)
-    for name, run in (("forward", lambda: bilstm_train_forward(xs, w, u, b)),
-                      ("backward", lambda: bilstm_train_backward(xs, w, u, b, h_out, c_out, dh))):
-        try:
-            run()
-        except ValueError as refused:
-            print(f"  train {name} at F = 12 on the card raises: {refused}")
-        else:
-            raise AssertionError(f"the train {name} took F = 12 on the card")
+    # 16-byte chunks the products cannot stage (F = 12), or that no sweep
+    # geometry fits (H = 264), raises in both kernels before any launch
+    before = kernel_counts()
+    for geometry in ((4, 5, 12, 8), (2, 3, 8, 264)):
+        xs, w, u, b, dh = stacked_inputs(geometry, dev, 7)
+        h_out, c_out = bilstm_train_reference(xs, w, u, b)
+        for name, run in (("forward", lambda: bilstm_train_forward(xs, w, u, b)),
+                          ("backward",
+                           lambda: bilstm_train_backward(xs, w, u, b, h_out, c_out, dh))):
+            try:
+                run()
+            except ValueError as refused:
+                print(f"  train {name} at F = {geometry[2]}, H = {geometry[3]} on the card "
+                      f"raises: {refused}")
+            else:
+                raise AssertionError(f"the train {name} took {geometry} on the card")
+    assert launched_since(before) == dict.fromkeys(before, 0)
     return errs
 
 
@@ -694,6 +718,59 @@ def check_sweep_geometries(dev):
         print(f"  row 5 forward {layer} B={GEOMETRY_BATCH} at every launchable (cluster, rows) "
               f"of the sweep, {len(launched)} of {len(candidates)} that fit: max|d| "
               f"{worst:.3e}; {launched}")
+    assert launched_since(before) == dict.fromkeys(before, 0)
+    return worst_all
+
+
+def check_bwd_sweep_geometries(dev, pair):
+    """Phases 3b and 4, the reverse sweep: a float32 backward (row 6 for
+    TRAIN_PAIR, row 2's float32 mode for STREAM_PAIR) at every (cluster
+    size, rows per tile) that ``bwd_sweep_geometries`` lists
+    (``_backward_launch``, which raises where one does not fit or launch),
+    at BWD_SWEEP_SHAPES, against the plain version on the same saved
+    forward: dx, dW, dU and db within BWD_REL_TOL of the reference's largest
+    |value|. No count moves (the geometry runs serve no path)."""
+    from clair_tpu_torch.models.bilstm import bilstm_with_cell
+    from clair_tpu_torch.ops import bilstm_stream, bilstm_train
+    from clair_tpu_torch.ops.lstm_sweep import bwd_sweep_geometries
+
+    train = pair == TRAIN_PAIR
+    worst_all, before = 0.0, kernel_counts()
+    for geometry in BWD_SWEEP_SHAPES:
+        b, t, f, h = geometry
+        if train:
+            xs, w, u, bias, dh = stacked_inputs(geometry, dev, sum(geometry) + 1)
+            h_out, c_out = bilstm_train.bilstm_train_reference(xs, w, u, bias)
+            args = (xs, w, u, bias, h_out, c_out, dh)
+            want = bilstm_train.bilstm_train_backward_reference(*args)
+            launch = bilstm_train._backward_launch
+        else:
+            rs = np.random.RandomState(sum(geometry) + 1)
+            params = lstm_params(rs, f, h, dev)
+            x = torch.tensor(rs.randn(b, t, f), dtype=torch.float32, device=dev)
+            dh = torch.tensor(rs.randn(b, t, 2 * h), dtype=torch.float32, device=dev)
+            w, u, bias = bilstm_stream._stack_params(params, torch.float32)
+            h_out, c_out = bilstm_with_cell(bilstm_stream._unstacked(w, u, bias), x)
+            args = (x, w, u, bias, h_out, c_out, dh)
+            want = bilstm_stream.bilstm_stream_backward_reference(*args)
+            launch = bilstm_stream._backward_launch
+        scales = [r.abs().max().item() for r in want]
+        candidates = bwd_sweep_geometries(h)
+        assert candidates, (pair[1], geometry)
+        worst, worst_share = 0.0, 0.0
+        for cluster, rows in candidates:
+            got = launch(*args, cluster=cluster, rows=rows)
+            torch.cuda.synchronize()
+            for name, g, r, scale in zip(("dx", "dw", "du", "db"), got, want, scales):
+                err = (g - r).abs().max().item()
+                assert torch.isfinite(g).all() and err <= BWD_REL_TOL * scale, (
+                    pair[1], geometry, name, cluster, rows, err, scale)
+                worst, worst_share = max(worst, err), max(worst_share, err / scale)
+        worst_all = max(worst_all, worst)
+        print(f"  row {6 if train else 2} float32 backward {geometry} at all {len(candidates)} "
+              f"(cluster, rows) of the reverse sweep that fit, every one launched: max|d| "
+              f"{worst:.3e}, at most {worst_share:.2e} of a gradient's largest |value| (bound "
+              f"{BWD_REL_TOL}); {candidates}")
     assert launched_since(before) == dict.fromkeys(before, 0)
     return worst_all
 
@@ -876,6 +953,20 @@ def check_backward_kernel(dev):
             print(f"  backward kernel vs plain {(b, t, f, h)} {str(dtype)[6:]}: "
                   + ", ".join(line))
     assert bilstm_stream_backward.launches == before + calls, "the kernel did not launch"
+    max_err = max(max_err, check_bwd_sweep_geometries(dev, STREAM_PAIR))
+    # a float32 width that no reverse-sweep geometry fits raises before any
+    # launch (bf16 takes it on its FMA sweep)
+    wide = lstm_params(np.random.RandomState(4), 8, 264, dev)
+    w, u, bias = _stack_params(wide, torch.float32)
+    x = torch.zeros((2, 3, 8), device=dev)
+    h_out, c_out = bilstm_with_cell(wide, x)
+    try:
+        bilstm_stream_backward(x, w, u, bias, h_out, c_out, torch.zeros_like(h_out))
+    except ValueError as refused:
+        print(f"  float32 backward at H = 264 refused before a launch: {refused}")
+    else:
+        raise AssertionError("the float32 backward took H = 264 on the card")
+    assert bilstm_stream_backward.launches == before + calls
     return max_err
 
 
@@ -1652,44 +1743,68 @@ def step_device_time(run, iters=5):
 BWD_PARTS = (("gate product", ("GateProblem", "XWProblem")), ("sweep", ("sweep",)),
              ("weight sums", ("WeightSumProblem",)), ("dx", ("DxProblem",)),
              ("float32 pieces", ("split_pieces",)))
+PROFILE_ATTEMPTS = 2  # profiles of device_parts before a split is printed as incomplete
 
 
 def device_parts(run, iters, label):
     """run()'s device time by part of BWD_PARTS (torch.profiler's
     key_averages over ``iters`` calls after a warm-up), ms per call, with
-    "total" the CUDA-event time of the same calls."""
+    "total" the CUDA-event time of the same calls. A profile in which some
+    kernel's launches are no positive multiple of ``iters`` lost events (a
+    long process on the card has shown 1-4 of 5 calls recorded) and is
+    taken again, up to PROFILE_ATTEMPTS times. Each kernel's ms per call is
+    its mean per launch times its launches a call: count / iters, or, in a
+    profile still short, its count over the fewest launches any kernel
+    recorded, rounded (exact for the kernels launched once a call, as the
+    products and the sweeps are), and the split is printed as estimated."""
     from torch.profiler import ProfilerActivity, profile
 
+    def device_us(e):
+        us = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if us is None else us
+
     total = cuda_ms(run, iters)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            run()
-        torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if device_us(e) > 0]
+        complete = all(e.count >= iters and e.count % iters == 0 for e in events)
+        if complete:
+            break
+        print(f"    {label}: profile {attempt} of {PROFILE_ATTEMPTS} recorded launch counts "
+              f"{sorted({e.count for e in events})}, not multiples of {iters} calls"
+              + ("; profiling again" if attempt < PROFILE_ATTEMPTS else "; the split below is "
+                 "ESTIMATED from each kernel's mean per launch (events lost), its total is "
+                 "the CUDA-event time"))
+    calls = iters if complete else min(e.count for e in events)
     parts = {name: 0.0 for name, _ in BWD_PARTS}
     parts["other (torch ops)"] = 0.0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us <= 0:
-            continue
+    for e in events:
+        launches = e.count / iters if complete else max(1, round(e.count / calls))
+        ms = device_us(e) / 1e3 / e.count * launches
         part = next((name for name, keys in BWD_PARTS
                      if any(k in e.key for k in keys)), "other (torch ops)")
-        parts[part] += us / 1e3 / iters
-        print(f"    {label} {e.key[:90]}: {us / 1e3 / iters:.4f} ms x{e.count // iters}")
+        parts[part] += ms
+        print(f"    {label} {e.key[:90]}: {ms:.4f} ms x{launches:g}")
     parts["total"] = total
     print(f"  {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()), flush=True)
     return parts
 
 
 def backward_split(dev, batch=TRAIN_BATCH, iters=5, dtypes=(torch.bfloat16, torch.float32),
-                   pair=STREAM_PAIR):
+                   pair=STREAM_PAIR, cluster=0, rows=0):
     """A backward's device time by part (``device_parts``), per layer (lstm1
     without dx, as the train step runs it) and dtype: row 2 (``pair`` =
     STREAM_PAIR) in ``dtypes``, or row 6 (TRAIN_PAIR, float32 only) on the
-    stacked layout. {(layer, dtype): {part: ms per call}}."""
-    from clair_tpu_torch.ops.bilstm_stream import _forward, _stack_params, bilstm_stream_backward
-    from clair_tpu_torch.ops.bilstm_train import bilstm_train_backward, bilstm_train_forward
+    stacked layout, its sweep at ``cluster`` and ``rows`` (0: the kernel's
+    choice; bf16 takes ``rows`` alone), counting no launch
+    (``_backward_launch``). {(layer, dtype): {part: ms per call}}."""
+    from clair_tpu_torch.ops.bilstm_stream import _backward_launch as stream_backward
+    from clair_tpu_torch.ops.bilstm_stream import _forward, _stack_params
+    from clair_tpu_torch.ops.bilstm_train import _backward_launch as train_backward
+    from clair_tpu_torch.ops.bilstm_train import bilstm_train_forward
 
     train = pair == TRAIN_PAIR
     split = {}
@@ -1707,16 +1822,16 @@ def backward_split(dev, batch=TRAIN_BATCH, iters=5, dtypes=(torch.bfloat16, torc
                 h_out, c_out = bilstm_train_forward(xs, w, u, bias)
 
                 def run():
-                    return bilstm_train_backward(xs, w, u, bias, h_out, c_out, dh,
-                                                 need_dx=need_dx)
+                    return train_backward(xs, w, u, bias, h_out, c_out, dh, need_dx=need_dx,
+                                          cluster=cluster, rows=rows)
             else:
                 w, u, bias = _stack_params(p, dtype)
                 xd, dh = x.to(dtype), dh32.to(dtype)
                 h_out, c_out = _forward(xd, w, u, bias, with_cell=True)
 
                 def run():
-                    return bilstm_stream_backward(xd, w, u, bias, h_out, c_out, dh,
-                                                  need_dx=need_dx)
+                    return stream_backward(xd, w, u, bias, h_out, c_out, dh, need_dx=need_dx,
+                                           cluster=cluster, rows=rows)
 
             name = str(dtype)[6:]
             split[(layer, name)] = device_parts(
@@ -1942,7 +2057,9 @@ def yardsticks(dev):
     torch.nn.LSTM computing the same function on the same shapes (row 3:
     with an identity weight_ih, fed xw; None where it refuses the dtype).
     Row 1's float32 mode gets the same at B = 512 and 10,000 (both layers,
-    c at the training batch), returned as a third dict by batch.
+    c at the training batch), returned as a third dict by batch, and row
+    2's float32 mode at 10,000 as a fourth (its library call is row 6's:
+    torch.nn.LSTM's float32 backward of the same layers).
     Prints beside each bound the tensor-core term of the kernel's passes
     (passes x operations / the bf16 peak): the float32 rows run their
     products as six bf16 passes, row 3 its h.U as three (U bf16)."""
@@ -2021,6 +2138,10 @@ def yardsticks(dev):
         b_ms, b_by = bound([fwd_work(batch, f, f32, with_cell=batch == TRAIN_BATCH)
                             for _, f in LAYERS], f32)
         f32_mode[f"B={batch}"] = {"bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    row2_works = [bwd_work(TRAIN_BATCH, f, f32, need_dx=f != 32) for _, f in LAYERS]
+    b_ms, b_by = bound(row2_works, f32)
+    row2_f32 = {f"B={TRAIN_BATCH}": {"bound_ms": b_ms, "bound_by": b_by,
+                                     "library_ms": library["bilstm_train_backward"]}}
     for name in KERNELS:
         ms, by = bounds[name]
         lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
@@ -2030,7 +2151,13 @@ def yardsticks(dev):
         lib = "none" if y["library_ms"] is None else f"{y['library_ms']:.4f} ms"
         print(f"  bilstm_stream float32 {batch}: bound {y['bound_ms']:.4f} ms ({y['bound_by']}), "
               f"library {lib}")
-    return bounds, library, f32_mode
+    for batch, y in row2_f32.items():
+        lib = "none" if y["library_ms"] is None else f"{y['library_ms']:.4f} ms"
+        print(f"  bilstm_stream_backward float32 {batch}: bound {y['bound_ms']:.4f} ms "
+              f"({y['bound_by']}), 6-pass tensor-core term "
+              f"{6 * sum(f for f, _ in row2_works) / PEAK_FLOPS[bf16] * 1e3:.4f} ms, library {lib} "
+              f"(torch.nn.LSTM float32 backward, row 6's call)")
+    return bounds, library, f32_mode, row2_f32
 
 
 # phase 11: each recipe's epochs and batches (demo.py --quick and
@@ -2387,6 +2514,7 @@ def main():
     ms = {k: 0.0 for k in KERNELS}
     plain_ms = dict(ms)
     row1_f32 = {}  # (layer, batch): (kernel ms, plain ms) of row 1's float32 mode
+    row2_f32_ms = {}  # layer: (kernel ms, plain ms) of row 2's float32 mode, B = 10,000
     for layer, feat in (("lstm1", 32), ("lstm2", 256)):
         rs = np.random.RandomState(feat)
         p = lstm_params(rs, feat, 128, dev)
@@ -2438,6 +2566,8 @@ def main():
                 if batch == 10_000 and dtype == torch.bfloat16:
                     ms["bilstm_stream_backward"] += k
                     plain_ms["bilstm_stream_backward"] += pl
+                elif batch == 10_000:
+                    row2_f32_ms[layer] = (k, pl)
     xu = torch.from_numpy(np.random.RandomState(8).randint(0, 40, (512, 33, 8, 4)).astype(np.uint8)).to(dev)
     for dtype in ("float32", "bfloat16"):
         for kernel, flags in (("streaming", {}), ("use_pallas_bilstm", {"use_pallas_bilstm": True})):
@@ -2461,8 +2591,12 @@ def main():
     t = time.perf_counter()
     print(f"rows 2, 6, 5 and 1 (float32) by kernel on {card} (torch.profiler, mean of 5 calls "
           f"after a warm-up):")
-    backward_split(dev)
-    backward_split(dev, pair=TRAIN_PAIR)
+    splits = {2: backward_split(dev), 6: backward_split(dev, pair=TRAIN_PAIR)}
+    for row, split in splits.items():
+        for layer, _ in LAYERS:
+            print(f"  row {row} float32 {layer} B={TRAIN_BATCH}: the reverse cluster sweep "
+                  f"{split[(layer, 'float32')]['sweep']:.4f} ms; the float32 FMA sweep before "
+                  f"it {FMA_SWEEP_MS[(row, layer)]:.3f} ms")
     forward_split(dev)
     phase("9a the backwards' and the float32 forwards' split", t)
 
@@ -2476,7 +2610,7 @@ def main():
 
     t = time.perf_counter()
     print(f"bounds and library calls on {card}:")
-    bounds, library, f32_mode = yardsticks(dev)
+    bounds, library, f32_mode, row2_f32 = yardsticks(dev)
     phase("9d bounds and library calls", t)
 
     assert "jax" not in sys.modules
@@ -2501,10 +2635,18 @@ def main():
             ms=sum(row1_f32[(layer, batch)][0] for layer, _ in LAYERS),
             plain_ms=sum(row1_f32[(layer, batch)][1] for layer, _ in LAYERS),
             **{f"{layer}_ms": row1_f32[(layer, batch)][0] for layer, _ in LAYERS})
+    # row 2's float32 mode: both layers at B = 10,000, its launches in the
+    # float32 train run
+    row2_f32[f"B={TRAIN_BATCH}"].update(
+        launches=trains["float32"][0]["kernel_launches"]["bilstm_stream_backward"],
+        ms=sum(k for k, _ in row2_f32_ms.values()),
+        plain_ms=sum(pl for _, pl in row2_f32_ms.values()),
+        **{f"{layer}_ms": row2_f32_ms[layer][0] for layer, _ in LAYERS})
+    float32_modes = {"bilstm_stream": f32_mode, "bilstm_stream_backward": row2_f32}
     print(json.dumps({"kernels": [dict(
         KERNELS[k], launches=launches[k], max_abs_err=max_err[k], ms=ms[k],
         plain_ms=plain_ms[k], bound_ms=bounds[k][0], bound_by=bounds[k][1],
-        library_ms=library[k], **({"float32": f32_mode} if k == "bilstm_stream" else {}))
+        library_ms=library[k], **({"float32": float32_modes[k]} if k in float32_modes else {}))
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -28,23 +28,29 @@
 //     that entry's dgates as bf16 pieces (below): in bf16 IN PLACE of the
 //     row's float32 gates (two pieces take the same bytes), in float32 to
 //     scratch. The only serial work left is the cell's elementwise backward
-//     and dh_carry = dgates . U^T. One block per (row tile, direction).
-//     bf16, H <= 128: the block stages its direction's U (H x 4H, 128 KB at
-//     H = 128) once into shared memory and runs the carry on mma.sync, 16 or
-//     32 rows a block (every m16 tile full), with the hardware tanh of the
-//     forward's bf16 gates; the next step's gates, c and dh_out are loaded
-//     while the carry runs. float32, or a larger H: U (256 KB in float32 at
-//     H = 128) does not fit one block, so the carry stays float32 FMA, U^T
-//     streamed from L2 through shared memory in chunks, 4 or 8 rows a
-//     block; it reads 4H * H values a step, not the (F + 2H) * 4H of a
-//     recompute.
+//     and dh_carry = dgates . U^T.
+//     float32: the cluster sweep of lstm_bwd_sweep.cuh through the policy
+//     SweepArgs: a cluster of 2, 4 or 8 CTAs holds U's three bf16 pieces
+//     (384 KB at H = 128, a CTA its units' gate columns), each CTA forms
+//     its partial dgates . U^T over its own gate columns on mma.sync, and
+//     the partials meet through distributed shared memory, summed in rank
+//     order; the next step's gates, c and dh_out are loaded while the
+//     carry runs.
+//     bf16, H <= 128: one block per (row tile, direction) stages its
+//     direction's U (H x 4H, 128 KB at H = 128) once into shared memory and
+//     runs the carry on mma.sync, 16 or 32 rows a block (every m16 tile
+//     full), with the hardware tanh of the forward's bf16 gates; the next
+//     step's gates, c and dh_out are loaded while the carry runs. bf16,
+//     H > 128: U does not fit one block, so the carry is float32 FMA, U^T
+//     streamed from L2 through shared memory in chunks, 4 or 8 rows a block.
 // (c) the weight sums dW, dU (A^T . dgates, A = [x | h_prev]) and db over
 //     fixed row chunks whose float32 partials the caller adds in a fixed
 //     order: deterministic, no atomics.
 // (d) dx = [dgates_0 | dgates_1] . [W_0 ; W_1]^T, written once in x's type.
 // (a), (c) and (d) are one templated tensor-core product (mma_product, in
-// mma_product.cuh with split_pieces and the float32 sweep (b), shared with
-// the resident training backward, bilstm_train.cu): 128 x 128 output tiles, 8 warps of 64 x 32, depth 32 a stage, every
+// mma_product.cuh with split_pieces; it and the float32 sweep (b) are shared
+// with the resident training backward, bilstm_train.cu): 128 x 128 output
+// tiles, 8 warps of 64 x 32, depth 32 a stage, every
 // operand's bf16 pieces staged by cp.async (zero-filled past every edge)
 // into a ring of three buffers, two in flight while one is multiplied,
 // fragments by ldmatrix (.trans where the operand's rows run along the
@@ -69,8 +75,9 @@
 //   split_bf16_product) against jax.grad of the TPU kernel: dW missed the
 //   elementwise bound rtol 3e-4, atol 3e-5 by 2.8x; three pieces stay
 //   below 0.15 of it.
-// The float32 sweep's carry is float32 FMA; the bf16 sweep's carry takes
-// the 2-piece dgates against bf16 U.
+// The float32 sweep's carry takes the three-piece dgates against
+// three-piece U (six passes); the bf16 sweep's the 2-piece dgates against
+// bf16 U.
 //
 // What bounds each kernel (B = 10,000, T = 33, H = 128; PERF.md has the
 // measured split):
@@ -79,7 +86,9 @@
 //   float32 dgates buffer (1.35 GB a layer), written by (a), read and
 //   written by (b), read by (c) and (d).
 // - (b): the serial chain of 33 steps (a step's loads, the elementwise
-//   backward, a block barrier, 32 dependent k16 steps of the carry).
+//   backward, a barrier, the carry's dependent k16 steps; in float32 also
+//   the exchange of the partial sums), and its bytes: gates, c and dh_out
+//   read, the dgates' pieces written.
 // Measured split, ms at B = 10,000 on an H100 80GB HBM3 at 700 W
 // (tools/torch_stream_bwd_parts.py, torch.profiler device time):
 //   the earlier design (gates recomputed on the serial chain, FMA products):
@@ -90,12 +99,13 @@
 //     lstm2 gates 1.509, sweep 1.859, sums 1.866, dx 1.284 (10.78 both
 //     layers); f32 lstm1 gates 2.264, sweep 5.355, sums 3.182, pieces
 //     0.399; lstm2 gates 4.669, sweep 5.381, sums 4.502, dx 3.095, pieces
-//     0.707 (29.81 both layers).
-// Left for later: float32 U^T held across a thread-block cluster (the f32
-// carry on the tensor cores), wgmma and TMA in the products, and one read
-// of dgates feeding both dx and the weight sums.
+//     0.707 (29.81 both layers), the sweep then float32 FMA with U^T
+//     streamed from L2 (4 or 8 rows a block).
+//   the float32 cluster sweep: PERF.md §6 (chip_smoke.py phase 9a).
+// Left for later: wgmma and TMA in the products, and one read of dgates
+// feeding both dx and the weight sums.
 
-#include "mma_product.cuh"
+#include "lstm_bwd_sweep.cuh"
 
 namespace {
 
@@ -230,10 +240,11 @@ struct SweepArgs {
     const float* c_out;   // (B, T, 2H) float32
     const void* dh_out;   // (B, T, 2H) in T
     const void* u;        // (2, H, 4H) in T
-    const void* ut;       // (2, 4H, H) in T, U transposed (the L2 carry)
+    const void* ut;       // bf16, H > 128: (2, 4H, H), U transposed (the FMA carry)
     int batch, t_len, hidden;
-    // the FMA sweep's layout policy (mma_product.cuh): direction 0 sweeps
-    // t = T-1 .. 0, direction 1 t = 0 .. T-1, each keeping its time index
+    // the layout policy of the float32 sweep (lstm_bwd_sweep.cuh) and of the
+    // bf16 FMA sweep: direction 0 sweeps t = T-1 .. 0, direction 1
+    // t = 0 .. T-1, each keeping its time index
     __device__ int time(int dir, int step) const { return dir == 0 ? t_len - 1 - step : step; }
     __device__ size_t row(int dir, int r, int t) const {
         return (static_cast<size_t>(dir) * batch + r) * t_len + t;
@@ -304,14 +315,6 @@ __device__ __forceinline__ void load_cell4(const SweepArgs& s, int dir, int row,
 
 __device__ __forceinline__ float lane_of(const float4& v, int u) {
     return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-// Four bf16 values as one 8-byte store.
-__device__ __forceinline__ void store4(bf16* p, const bf16 (&v)[4]) {
-    uint2 raw;
-    *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __halves2bfloat162(v[0], v[1]);
-    *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __halves2bfloat162(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) = raw;
 }
 
 template <int R>
@@ -440,11 +443,154 @@ __global__ void __launch_bounds__(kThreads, 1) bilstm_bwd_sweep_mma(const SweepA
         __syncthreads();  // dh_carry complete; every read of the pieces done
     }
 }
-// Whether the bf16 sweep holds U in shared memory (H <= 128): decided by the
-// shape alone.
-template <typename T>
-bool sweep_on_tensor_cores(int hidden) {
-    return sizeof(T) == 2 && hidden <= 128;
+// ---- the bf16 FMA sweep, H > 128 ---------------------------------------------
+
+// One (row, unit)'s step: its gates, c_t, c_prev and dh_out.
+struct Cell {
+    float a[4], c, c_prev, dh_out;
+};
+
+// The values of (row, t, unit j) into v; with_c false takes c_t from
+// v.c_prev, the last step's c_prev (the sweep walks t one step at a time).
+__device__ __forceinline__ void load_cell(const SweepArgs& s, int dir, int row, int t, int j,
+                                          Cell& v, bool with_c) {
+    const float c_t = v.c_prev;
+    v = Cell{};
+    if (row >= s.batch) return;
+    const int hidden = s.hidden, gates = 4 * hidden;
+    const float* g = s.gates + s.row(dir, row, t) * gates + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v.a[q] = g[q * hidden];
+    const size_t at = s.cell(dir, row, t) + j;
+    v.c = with_c ? s.c_out[at] : c_t;
+    v.dh_out = to_float(static_cast<const bf16*>(s.dh_out)[at]);
+    const int tp = s.prev(dir, t);
+    if (tp >= 0) v.c_prev = s.c_out[s.cell(dir, row, tp) + j];
+}
+
+// The dgates of (row, t, unit j) as the sweep's two bf16 pieces, in place
+// of the entry's gates.
+__device__ __forceinline__ void store_pieces(const SweepArgs& s, int dir, int row, int t, int j,
+                                             const float (&dg)[4]) {
+    const int gates = 4 * s.hidden;
+    bf16* out = s.pieces + s.row(dir, row, t) * s.n_pieces * gates + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+        float rest = dg[g];
+        for (int p = 0; p < s.n_pieces; ++p) {
+            const bf16 piece = __float2bfloat16_rn(rest);
+            out[p * gates + g * s.hidden] = piece;
+            rest -= __bfloat162float(piece);
+        }
+    }
+}
+
+// The bf16 sweep where U does not fit one block (H > 128), the carry in
+// float32 FMA. blockDim.x == H, a thread owning one unit of every row;
+// gridDim = (ceil(batch / R), 2), blockIdx.y the direction. U^T streams
+// through shared memory in chunks of `FmaLayout::chunk` rows (cp.async, two
+// buffers), read by every row of the block. A step reads its R rows' gates
+// before any thread writes their pieces (which overwrite the gates in
+// place).
+template <int R>
+struct FmaLayout {
+    int chunk;  // rows of U^T a stage: 32, fewer where 32 rows pass 32 KB
+    size_t ut_off, total;
+    __host__ __device__ explicit FmaLayout(int hidden) {
+        chunk = 32;
+        while (chunk > 4 && static_cast<size_t>(chunk) * hidden * sizeof(bf16) > 32 * 1024) chunk /= 2;
+        ut_off = sizeof(float) * R * 5 * static_cast<size_t>(hidden);  // dh_s (R, H), dg_s (R, 4H)
+        total = ut_off + 2 * static_cast<size_t>(chunk) * hidden * sizeof(bf16);
+    }
+};
+
+template <int R>
+__global__ void bilstm_bwd_sweep_fma(const SweepArgs s) {
+    // (named apart from the other kernels' dynamic shared memory)
+    extern __shared__ __align__(16) unsigned char sweep_smem[];
+    const int hidden = blockDim.x, gates = 4 * hidden;
+    const FmaLayout<R> L(hidden);
+    const int j = threadIdx.x;
+    const int dir = blockIdx.y;
+    const int row0 = blockIdx.x * R;
+    float* dh_s = reinterpret_cast<float*>(sweep_smem);  // (R, H): dh_carry
+    float* dg_s = dh_s + R * hidden;               // (R, 4H): this step's dgates
+    bf16* ut_s = reinterpret_cast<bf16*>(sweep_smem + L.ut_off);  // 2 x (chunk, H) of U^T
+    const bf16* utd = static_cast<const bf16*>(s.ut) + static_cast<size_t>(dir) * gates * hidden;
+    constexpr int per = 16 / sizeof(bf16);
+    const int chunk_copies = L.chunk * hidden / per;
+    auto stage_ut = [&](int c, int buf) {
+        const bf16* src = utd + static_cast<size_t>(c) * L.chunk * hidden;
+        bf16* dst = ut_s + static_cast<size_t>(buf) * L.chunk * hidden;
+        for (int i = j; i < chunk_copies; i += hidden) cp_async16(dst + i * per, src + i * per);
+        cp_async_commit();
+    };
+
+    float dc[R];
+    Cell cell[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        dc[r] = 0.0f;
+        dh_s[r * hidden + j] = 0.0f;
+        cell[r].c_prev = 0.0f;
+    }
+    for (int step = 0; step < s.t_len; ++step) {
+        const int t = s.time(dir, step);
+        stage_ut(0, 0);  // the carry's first chunk, in flight during the cell's backward
+#pragma unroll
+        for (int r = 0; r < R; ++r) load_cell(s, dir, row0 + r, t, j, cell[r], step == 0);
+        __syncthreads();  // every gate of the step is read; dh_s and dg_s are free
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            float dg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (row0 + r < s.batch) {
+                cell_backward<bf16>(cell[r].a, cell[r].c, cell[r].c_prev,
+                                    cell[r].dh_out + dh_s[r * hidden + j], dc[r], dg);
+                store_pieces(s, dir, row0 + r, t, j, dg);
+            }
+#pragma unroll
+            for (int g = 0; g < 4; ++g) dg_s[r * gates + g * hidden + j] = dg[g];
+        }
+
+        // dh_carry[r][j] = sum_k dgates[r][k] * U[j][k], U^T chunk by chunk
+        float carry[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) carry[r] = 0.0f;
+        const int chunks = gates / L.chunk;
+        for (int c = 0; c < chunks; ++c) {
+            if (c + 1 < chunks) {
+                stage_ut(c + 1, (c + 1) & 1);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();  // chunk c (and at c = 0 dg_s) complete
+            const bf16* us = ut_s + static_cast<size_t>(c & 1) * L.chunk * hidden + j;
+            const float* dgk = dg_s + c * L.chunk;
+            for (int k = 0; k < L.chunk; k += 4) {
+                const float u0 = to_float(us[k * hidden]), u1 = to_float(us[(k + 1) * hidden]);
+                const float u2 = to_float(us[(k + 2) * hidden]), u3 = to_float(us[(k + 3) * hidden]);
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    const float4 d = *reinterpret_cast<const float4*>(dgk + r * gates + k);
+                    carry[r] = fmaf(d.w, u3, fmaf(d.z, u2, fmaf(d.y, u1, fmaf(d.x, u0, carry[r]))));
+                }
+            }
+            __syncthreads();  // every read of this chunk's buffer is done
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) dh_s[r * hidden + j] = carry[r];
+    }
+}
+
+template <int R>
+cudaError_t launch_sweep_fma(const SweepArgs& s, cudaStream_t stream) {
+    const size_t smem = FmaLayout<R>(s.hidden).total;
+    if (smem > kSmemLimit) return cudaErrorInvalidValue;
+    const cudaError_t err = allow_dynamic_smem(bilstm_bwd_sweep_fma<R>, smem);
+    if (err != cudaSuccess) return err;
+    bilstm_bwd_sweep_fma<R><<<dim3((s.batch + R - 1) / R, 2), dim3(s.hidden), smem, stream>>>(s);
+    return cudaGetLastError();
 }
 
 template <int R>
@@ -456,22 +602,23 @@ cudaError_t launch_sweep_mma(const SweepArgs& s, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-// Rows a sweep block: the tensor-core sweep 16, or 32 from B = 4096 (on an
-// H100 at B = 10,000 32 rows ran 7% faster than 16; at B = 512, 16 rows
-// 1.1-1.8x faster than 32); the FMA sweep fma_sweep_rows (4, or 8 from
-// B = 4096). `rows` > 0 takes that number where the sweep has it (16 or 32;
+// The bf16 sweep, chosen by the shape alone: U in shared memory and the
+// carry on the tensor cores where H <= 128, 16 rows a block or 32 from
+// B = 4096 (on an H100 at B = 10,000 32 rows ran 7% faster than 16; at
+// B = 512, 16 rows 1.1-1.8x faster than 32); else the FMA sweep, 4 rows a
+// block or 8 from B = 4096 (as the float32 FMA sweep it came from ran
+// fastest). `rows` > 0 takes that number where the sweep has it (16 or 32;
 // 4 or 8).
-template <typename T>
-cudaError_t launch_sweep(const SweepArgs& s, int rows, cudaStream_t stream) {
-    if (sweep_on_tensor_cores<T>(s.hidden)) {
+cudaError_t launch_bf16_sweep(const SweepArgs& s, int rows, cudaStream_t stream) {
+    if (s.hidden <= 128) {
         if (rows <= 0) rows = s.batch >= 4096 ? 32 : 16;
         if (rows == 16) return launch_sweep_mma<16>(s, stream);
         if (rows == 32) return launch_sweep_mma<32>(s, stream);
         return cudaErrorInvalidValue;
     }
-    if (rows <= 0) rows = fma_sweep_rows(s.batch);
-    if (rows == 4) return launch_sweep_fma<T, 4>(s, stream);
-    if (rows == 8) return launch_sweep_fma<T, 8>(s, stream);
+    if (rows <= 0) rows = s.batch >= 4096 ? 8 : 4;
+    if (rows == 4) return launch_sweep_fma<4>(s, stream);
+    if (rows == 8) return launch_sweep_fma<8>(s, stream);
     return cudaErrorInvalidValue;
 }
 
@@ -487,11 +634,19 @@ cudaError_t launch(const void* x, const void* w, const void* u, const void* ut, 
                    const void* h_out, const void* c_out, const void* dh_out, void* dgates,
                    void* partial, void* dx, void* scratch, long long scratch_bytes, int batch,
                    int t_len, int feat, int hidden, int splits, int rows_per_split,
-                   int sweep_rows, cudaStream_t stream) {
+                   int sweep_cluster, int sweep_rows, cudaStream_t stream) {
     constexpr bool f32 = sizeof(T) == 4;
     constexpr int PX = f32 ? 3 : 1, PD = f32 ? 3 : 2;
     const int rows = batch * t_len;
     const int gates = 4 * hidden;
+    // float32: the sweep's geometry first, so one that does not fit launches
+    // nothing
+    int per_dir = 0;
+    if constexpr (f32) {
+        const cudaError_t planned =
+            plan_bwd_sweep<SweepArgs>(batch, hidden, sweep_cluster, sweep_rows, per_dir);
+        if (planned != cudaSuccess) return planned;
+    }
     float* gate_buf = static_cast<float*>(dgates);
     Pieces xp{static_cast<const bf16*>(x), feat, 1}, hp{static_cast<const bf16*>(h_out), 2 * hidden, 1};
     Pieces wp{static_cast<const bf16*>(w), gates, 1}, up{static_cast<const bf16*>(u), gates, 1};
@@ -523,7 +678,8 @@ cudaError_t launch(const void* x, const void* w, const void* u, const void* ut, 
 
     const SweepArgs s{gate_buf, const_cast<bf16*>(dgp.base), PD,
                       static_cast<const float*>(c_out), dh_out, u, ut, batch, t_len, hidden};
-    err = launch_sweep<T>(s, sweep_rows, stream);
+    err = f32 ? launch_bwd_sweep(s, sweep_cluster, sweep_rows, per_dir, stream)
+              : launch_bf16_sweep(s, sweep_rows, stream);
     if (err != cudaSuccess) return err;
 
     WeightSumProblem<PX, PD> wsp{xh, dgp, static_cast<float*>(partial), gates, rows_per_split};
@@ -540,15 +696,18 @@ cudaError_t launch(const void* x, const void* w, const void* u, const void* ut, 
 // u, ut, h_out, dh_out and dx (0: float32, 1: bfloat16); b, c_out, dgates
 // and partial are float32. dgates (2, B, T, 4H) holds the gates; in bf16
 // their rows are then overwritten in place by the dgates' two bf16 pieces.
-// scratch (float32 only; may be null for bf16) holds scratch_bytes >=
-// 2 * 3 * (B*T*F + B*T*2H + 2F*4H + 2H*4H + 2*B*T*4H) bytes: the bf16
-// pieces of x, h_out, W, U and the dgates. partial holds
+// ut, U transposed (2, 4H, H), is read only by the bf16 FMA sweep (H > 128)
+// and may be null otherwise. scratch (float32 only; may be null for bf16)
+// holds scratch_bytes >= 2 * 3 * (B*T*F + B*T*2H + 2F*4H + 2H*4H + 2*B*T*4H)
+// bytes: the bf16 pieces of x, h_out, W, U and the dgates. partial holds
 // splits * 2 * (F + H + 1) * 4H floats, chunk `split` covering rows
 // [split * rows_per_split, ...) of the B*T rows; dx may be null (no input
 // gradient). F and H must be multiples of 8, and every pointer 16-byte
-// aligned. sweep_rows: the sweep's rows a block (0: chosen from the shape;
-// 16 or 32 for the bf16 tensor-core sweep, 4 or 8 for the FMA sweep), for
-// measuring the choice.
+// aligned. The sweep's geometry, for measuring the choice (0: chosen from
+// the shape): float32 runs the cluster sweep at sweep_cluster CTAs and
+// sweep_rows rows a tile (lstm_bwd_sweep.cuh), cudaErrorInvalidValue
+// before any launch where that geometry does not fit; bf16 takes sweep_rows alone (16
+// or 32 for the tensor-core sweep, 4 or 8 for the FMA sweep).
 // Launches on `stream`, does not synchronise, and returns the first launch
 // error as an int (0: none).
 extern "C" int clair_bilstm_stream_bwd(const void* x, const void* w, const void* u,
@@ -557,14 +716,15 @@ extern "C" int clair_bilstm_stream_bwd(const void* x, const void* w, const void*
                                        void* partial, void* dx, void* scratch,
                                        long long scratch_bytes, int batch, int t_len, int feat,
                                        int hidden, int splits, int rows_per_split,
-                                       int sweep_rows, int is_bf16, void* stream) {
+                                       int sweep_cluster, int sweep_rows, int is_bf16,
+                                       void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const cudaError_t err = is_bf16
         ? launch<bf16>(x, w, u, ut, b, h_out, c_out, dh_out, dgates, partial, dx, scratch,
                        scratch_bytes, batch, t_len, feat, hidden, splits, rows_per_split,
-                       sweep_rows, s)
+                       sweep_cluster, sweep_rows, s)
         : launch<float>(x, w, u, ut, b, h_out, c_out, dh_out, dgates, partial, dx, scratch,
                         scratch_bytes, batch, t_len, feat, hidden, splits, rows_per_split,
-                        sweep_rows, s);
+                        sweep_cluster, sweep_rows, s);
     return static_cast<int>(err);
 }

@@ -32,8 +32,9 @@
 // 0.57, xw 3.70, sweep 2.84. At B = 512: 0.70 against 2.78 ms.
 //
 // Backward: the TPU kernel's reverse sweep, built from the streaming
-// backward's parts (mma_product.cuh: the split-bf16 tensor-core product and
-// the float32 FMA sweep). Four kernels behind one launch of the entry
+// backward's parts (mma_product.cuh: the split-bf16 tensor-core product;
+// lstm_bwd_sweep.cuh: the float32 cluster sweep). Four kernels behind one
+// launch of the entry
 // point, on the stacked layout: row n of 2B is direction n / B, and in the
 // products a direction's T*B rows are m = t*B + r, at row (t*2 + d)*B + r
 // of the (T, 2B, .) tensors (m / B by a float reciprocal with a
@@ -47,9 +48,12 @@
 //     gates once with c_t, c_{t-1} and dh_out_t, forms
 //       dgates = [dc*g*i(1-i), dc*c_{t-1}*f(1-f), dc*i(1-g^2), dh*tanh(c)*o(1-o)]
 //     with dh = dh_out_t + dh_carry and dc = dc_carry + dh*o*(1 - tanh^2 c),
-//     carries dh_carry = dgates.U^T (float32 FMA, U^T streamed through
-//     shared memory) and dc_carry = dc*f, and writes dgates as three bf16
-//     pieces to scratch. 4 rows a block, 8 from B = 4096.
+//     carries dh_carry = dgates.U^T and dc_carry = dc*f, and writes dgates
+//     as three bf16 pieces to scratch: lstm_bwd_sweep.cuh through the
+//     policy StackedSweep (a cluster of 2, 4 or 8 CTAs holds U's three bf16
+//     pieces, each CTA's partial dgates.U^T over its own gate columns on
+//     mma.sync, the partials summed in rank order through distributed
+//     shared memory).
 // (c) dW, dU (A^T . dgates, A = [xs_t | h_{t-1}]) and db over fixed chunks of
 //     each direction's T*B rows into float32 partials that the caller sums
 //     in a fixed order: no atomics, the same bits every run.
@@ -58,8 +62,8 @@
 //     rows B.. and adds the halves).
 // Numerics: every product takes its float32 operands as three bf16 pieces,
 // six passes, float32 sums (float32-level products; two pieces missed the
-// TPU kernel's gradients by 2.8x on the CPU emulation); the carry and the
-// cell's backward stay float32.
+// TPU kernel's gradients by 2.8x on the CPU emulation), the carry too; the
+// cell's backward stays float32.
 // What bounds each kernel (B = 10,000, T = 33, H = 128; PERF.md has the
 // measured split, tools/torch_stream_bwd_parts.py --pair train):
 // - (a), (c), (d): tensor-core operations, 2 * 2B*T * (F + H) * 4H for (a)
@@ -67,7 +71,8 @@
 //   the float32 gates (1.35 GB, written by (a), read by (b)) and the
 //   dgates' pieces (2.03 GB at lstm2, written by (b), read by (c) and (d)).
 // - (b): the serial chain of T steps (a step's loads, the elementwise
-//   backward, 4H * H FMA of the carry a row, U^T read from L2 every step).
+//   backward, the carry's six-pass product and the exchange of its partial
+//   sums), and its bytes: gates, c and dh_out read, the pieces written.
 // - (pieces): bytes, the float32 operands read once and 1.5 times their
 //   bytes written.
 // Measured, ms at B = 10,000 on an H100 80GB HBM3 at 700 W:
@@ -77,15 +82,15 @@
 //     register-tiled FMA product): 63.02 both layers (CUDA events,
 //     tools/torch_step_compare.py --kernels);
 //   this design, split by kernel (tools/torch_stream_bwd_parts.py --pair
-//     train, torch.profiler device time): lstm1 gates 2.603, sweep 5.442,
-//     sums 3.375, pieces 0.443 (11.89 the call); lstm2 gates 5.083, sweep
-//     5.262, sums 4.735, dx 3.355, pieces 1.059 (20.13 the call).
-// Left for later, as for the streaming backward: float32 U^T held across a
-// thread-block cluster (the sweep, a third of the time, on the tensor
-// cores), wgmma and TMA in the products, one read of dgates feeding both dx
-// and the weight sums.
+//     train, torch.profiler device time), with the sweep in float32 FMA (U^T
+//     streamed from L2 every step, 4 or 8 rows a block): lstm1 gates 2.603,
+//     sweep 5.442, sums 3.375, pieces 0.443 (11.89 the call); lstm2 gates
+//     5.083, sweep 5.262, sums 4.735, dx 3.355, pieces 1.059 (20.13 the
+//     call); with the cluster sweep: PERF.md §6 (chip_smoke.py phase 9a).
+// Left for later, as for the streaming backward: wgmma and TMA in the
+// products, one read of dgates feeding both dx and the weight sums.
 
-#include "lstm_sweep.cuh"
+#include "lstm_bwd_sweep.cuh"
 
 namespace {
 
@@ -215,15 +220,14 @@ struct StackedDxProblem {
     __device__ void store_db(int, float) const {}
 };
 
-// (b) the float32 FMA sweep's layout policy (mma_product.cuh): both
+// (b) the reverse sweep's layout policy (lstm_bwd_sweep.cuh): both
 // directions sweep t = T-1 .. 0, an entry (dir, r, t) at row (t*2 + dir)*B + r.
 struct StackedSweep {
     const float* gates;   // (T, 2B, 4H) float32 pre-activations
-    bf16* pieces;         // dgates out: (T, 2B) rows of n_pieces x 4H bf16
-    int n_pieces;
+    bf16* pieces;         // dgates out: (T, 2B) rows of three pieces x 4H bf16
     const float* c_out;   // (T, 2B, H)
     const void* dh_out;   // (T, 2B, H) float32
-    const void* ut;       // (2, 4H, H) float32, U transposed
+    const float* u;       // (2, H, 4H)
     int batch, t_len, hidden;
     __device__ int time(int, int step) const { return t_len - 1 - step; }
     __device__ size_t row(int dir, int r, int t) const {
@@ -241,18 +245,20 @@ size_t scratch_elems(size_t rows2, int feat, int hidden) {
                 rows2 * gates);
 }
 
-cudaError_t launch_bwd(const void* xs, const void* w, const void* u, const void* ut,
-                       const void* b, const void* h_out, const void* c_out, const void* dh_out,
-                       void* gate_buf, void* partial, void* dx, void* scratch,
-                       long long scratch_bytes, int batch, int t_len, int feat, int hidden,
-                       int splits, int rows_per_split, cudaStream_t stream) {
+cudaError_t launch_bwd(const void* xs, const void* w, const void* u, const void* b,
+                       const void* h_out, const void* c_out, const void* dh_out, void* gate_buf,
+                       void* partial, void* dx, void* scratch, long long scratch_bytes, int batch,
+                       int t_len, int feat, int hidden, int splits, int rows_per_split,
+                       int cluster, int sweep_rows, cudaStream_t stream) {
     const size_t rows2 = 2 * static_cast<size_t>(batch) * t_len;  // every row of (T, 2B)
     const int rows = batch * t_len;                                 // a direction's
     const int gates = 4 * hidden;
     if (feat % 8 || hidden % 8 || scratch == nullptr ||
         static_cast<size_t>(scratch_bytes) < sizeof(bf16) * scratch_elems(rows2, feat, hidden))
         return cudaErrorInvalidValue;
-    cudaError_t err = cudaSuccess;
+    int per_dir = 0;
+    cudaError_t err = plan_bwd_sweep<StackedSweep>(batch, hidden, cluster, sweep_rows, per_dir);
+    if (err != cudaSuccess) return err;
     bf16* at = static_cast<bf16*>(scratch);
     auto carve = [&](const void* src, size_t n_rows, int cols, Pieces& out) {
         out = Pieces{at, cols, 3};
@@ -274,10 +280,9 @@ cudaError_t launch_bwd(const void* xs, const void* w, const void* u, const void*
     err = launch_product(gp, gates, rows, 2, stream);
     if (err != cudaSuccess) return err;
 
-    const StackedSweep s{gate_out, const_cast<bf16*>(dgp.base), 3,
-                         static_cast<const float*>(c_out), dh_out, ut, batch, t_len, hidden};
-    err = fma_sweep_rows(batch) == 8 ? launch_sweep_fma<float, 8>(s, stream)
-                                     : launch_sweep_fma<float, 4>(s, stream);
+    const StackedSweep s{gate_out, const_cast<bf16*>(dgp.base), static_cast<const float*>(c_out),
+                         dh_out, static_cast<const float*>(u), batch, t_len, hidden};
+    err = launch_bwd_sweep(s, cluster, sweep_rows, per_dir, stream);
     if (err != cudaSuccess) return err;
 
     const StackedWeightSumProblem wsp{xh, dgp, static_cast<float*>(partial), gates, rows_per_split};
@@ -372,19 +377,21 @@ extern "C" int clair_bilstm_train_fwd(const void* xs, const void* w, const void*
 // The backward: dx (T, 2B, F) unless null, and the partial sums of dW, dU
 // and db, partial (splits, 2, F + H + 1, 4H) float32, chunk `split` of each
 // direction covering its rows m = t*B + r in [split * rows_per_split, ...)
-// (every element written). ut is U transposed, (2, 4H, H); gates is a
-// (T, 2B, 4H) float32 buffer; scratch holds scratch_bytes >=
-// 2 * 3 * (T*2B*F + T*2B*H + 2F*4H + 2H*4H + T*2B*4H) bytes (the bf16 pieces
-// of xs, h_out, W, U and the dgates). F and H must be multiples of 8
-// (otherwise cudaErrorInvalidValue), and ut, gates, partial, dx and scratch
-// 16-byte aligned (the other operands are read a value at a time).
+// (every element written). gates is a (T, 2B, 4H) float32 buffer; scratch
+// holds scratch_bytes >= 2 * 3 * (T*2B*F + T*2B*H + 2F*4H + 2H*4H + T*2B*4H)
+// bytes (the bf16 pieces of xs, h_out, W, U and the dgates). The reverse
+// sweep runs at the cluster size and rows per tile given, or chosen where
+// either is 0 (lstm_sweep.cuh: plan_sweep). F and H must be multiples of 8,
+// and every pointer 16-byte aligned; cudaErrorInvalidValue otherwise, and
+// before any launch where the geometry does not fit or launch.
 extern "C" int clair_bilstm_train_bwd(const void* xs, const void* w, const void* u,
-                                      const void* ut, const void* b, const void* h_out,
-                                      const void* c_out, const void* dh_out, void* gates,
-                                      void* partial, void* dx, void* scratch,
-                                      long long scratch_bytes, int batch, int t_len, int feat,
-                                      int hidden, int splits, int rows_per_split, void* stream) {
-    return static_cast<int>(launch_bwd(xs, w, u, ut, b, h_out, c_out, dh_out, gates, partial, dx,
+                                      const void* b, const void* h_out, const void* c_out,
+                                      const void* dh_out, void* gates, void* partial, void* dx,
+                                      void* scratch, long long scratch_bytes, int batch,
+                                      int t_len, int feat, int hidden, int splits,
+                                      int rows_per_split, int cluster, int rows, void* stream) {
+    return static_cast<int>(launch_bwd(xs, w, u, b, h_out, c_out, dh_out, gates, partial, dx,
                                        scratch, scratch_bytes, batch, t_len, feat, hidden, splits,
-                                       rows_per_split, static_cast<cudaStream_t>(stream)));
+                                       rows_per_split, cluster, rows,
+                                       static_cast<cudaStream_t>(stream)));
 }

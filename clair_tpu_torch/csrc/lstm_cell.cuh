@@ -19,12 +19,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
     return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
+// sigmoid(v) = (1 + tanh(v / 2)) / 2 with the accurate tanhf. It has no
+// division: 1 / (1 + expf(-v)) takes IEEE division's slow-path branch,
+// which keeps a lane's cells from interleaving (tools/
+// torch_train_fwd_sweep.py times both; PERF.md has the numbers).
+__device__ __forceinline__ float sigmoid_tanh(float v) { return fmaf(0.5f, tanhf(0.5f * v), 0.5f); }
 
-// The streaming pair's gate nonlinearities: float32 takes the accurate expf
-// and tanhf (the forward's bound against the plain version is 2e-6); bf16,
-// whose h is rounded to 2^-8 every step, the hardware tanh (relative error
-// 2^-11), with sigmoid(v) = tanh(v / 2) / 2 + 1 / 2.
+// The backwards' gate nonlinearities by the forward's dtype: float32 the
+// accurate tanhf (sigmoid through it, sigmoid_tanh); bf16, whose h is
+// rounded to 2^-8 every step, the hardware tanh (relative error 2^-11),
+// with sigmoid(v) = tanh(v / 2) / 2 + 1 / 2.
 __device__ __forceinline__ float tanh_approx(float v) {
     float r;
     asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
@@ -38,7 +42,15 @@ __device__ __forceinline__ float gate_tanh(float v) {
 template <typename T>
 __device__ __forceinline__ float gate_sigmoid(float v) {
     if constexpr (sizeof(T) == 2) return fmaf(0.5f, tanh_approx(0.5f * v), 0.5f);
-    else return sigmoid(v);
+    else return sigmoid_tanh(v);
+}
+
+// Four bf16 values as one 8-byte store.
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const __nv_bfloat16 (&v)[4]) {
+    uint2 raw;
+    *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __halves2bfloat162(v[0], v[1]);
+    *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __halves2bfloat162(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // 16 bytes from device memory into shared memory, asynchronously; with

@@ -79,6 +79,10 @@
 // xw widened at its load (the warp stalls there until it lands) took 0.014
 // ms more than a float32 xw; widened in the cell, as here, it costs none.
 //
+// The backwards' float32 reverse sweep (lstm_bwd_sweep.cuh) runs these
+// parts in reverse: U's tile (load_u_pieces), the swizzle, the cluster
+// barrier and the launcher's planner (plan_sweep).
+//
 // The layout policy S (bilstm_train.cu: StackedForward; bilstm.cu:
 // PrecomputedForward; bilstm_stream_fwd.cu: StreamForward) supplies the element types xw_type and u_type
 // (float or bf16: xw is widened where the cell takes it, U split into its P =
@@ -143,13 +147,12 @@ struct SweepGeometry {
         return (cluster == 2 || cluster == 4 || cluster == 8) && rows > 0 && rows % 8 == 0 &&
                smem <= kSmemLimit && items <= kSweepMaxItems * kSweepWarps;
     }
+    // a step's cost in the launcher's model: the n-tiles a warp carries
+    // (each hk / 8 mma steps a pass), and the fixed part
+    long step_cost() const {
+        return kTileCost * ((items + kSweepWarps - 1) / kSweepWarps * item_tiles) + kStepCost;
+    }
 };
-
-// sigmoid(v) = (1 + tanh(v / 2)) / 2 with the accurate tanhf. It has no
-// division: 1 / (1 + expf(-v)) takes IEEE division's slow-path branch,
-// which keeps a lane's cells from interleaving (tools/
-// torch_train_fwd_sweep.py times both; PERF.md has the numbers).
-__device__ __forceinline__ float sigmoid_tanh(float v) { return fmaf(0.5f, tanhf(0.5f * v), 0.5f); }
 
 // The XOR swizzle of a bf16 tile whose rows are hk values: the 16-byte
 // chunk q of row r lives at chunk q ^ (r & mask).
@@ -159,6 +162,30 @@ __host__ __device__ inline int swizzle_mask(int hk) {
 }
 __device__ __forceinline__ int swizzled(int row, int k, int hk, int mask) {
     return row * hk + (((k >> 3) ^ (row & mask)) << 3) + (k & 7);
+}
+
+// U's columns of CTA `rank`'s uc units (ud: one direction's U, (H, 4H)) as P
+// bf16 pieces into us, gate-major (per 8 units, 8 rows each of i, f, g, o),
+// each row of hk values (its units' weights from h_k, zero past H)
+// XOR-swizzled.
+template <int P, typename U>
+__device__ __forceinline__ void load_u_pieces(bf16* us, const U* ud, int hidden, int uc, int hk,
+                                              int rank, int mask) {
+    const int gates = 4 * hidden;
+    const size_t u_piece = size_t(4) * uc * hk;
+    for (int idx = threadIdx.x; idx < hk * 4 * uc; idx += kThreads) {
+        const int k = idx / (4 * uc), m = idx - k * 4 * uc;
+        const int gate = m / uc, ul = m - gate * uc, unit = rank * uc + ul;
+        float rest = k < hidden && unit < hidden
+            ? to_float(ud[static_cast<size_t>(k) * gates + gate * hidden + unit]) : 0.0f;
+        const int at = swizzled((ul >> 3) * 32 + gate * 8 + (ul & 7), k, hk, mask);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const bf16 piece = __float2bfloat16_rn(rest);
+            us[p * u_piece + at] = piece;
+            rest -= __bfloat162float(piece);
+        }
+    }
 }
 
 // acc[i] += h[rows r0[i] ..] . U[the unit group's gate columns] over the
@@ -269,23 +296,11 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_sweep(const S s, const S
     constexpr int P = u_pieces<S>;
     bf16* us = reinterpret_cast<bf16*>(fwd_sweep_smem);
     bf16* hbuf = reinterpret_cast<bf16*>(fwd_sweep_smem + g.h_off);
-    const size_t u_piece = size_t(4) * uc * hk, h_piece = size_t(rows) * hk;
+    const size_t h_piece = size_t(rows) * hk;
 
     // U's columns of this CTA's units as P pieces, once for the launch
-    const typename S::u_type* ud = s.u + static_cast<size_t>(dir) * hidden * gates;
-    for (int idx = threadIdx.x; idx < hk * 4 * uc; idx += kThreads) {
-        const int k = idx / (4 * uc), m = idx - k * 4 * uc;
-        const int gate = m / uc, ul = m - gate * uc, unit = rank * uc + ul;
-        float rest = k < hidden && unit < hidden
-            ? to_float(ud[static_cast<size_t>(k) * gates + gate * hidden + unit]) : 0.0f;
-        const int at = swizzled((ul >> 3) * 32 + gate * 8 + (ul & 7), k, hk, mask);
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-            const bf16 piece = __float2bfloat16_rn(rest);
-            us[p * u_piece + at] = piece;
-            rest -= __bfloat162float(piece);
-        }
-    }
+    load_u_pieces<P>(us, s.u + static_cast<size_t>(dir) * hidden * gates, hidden, uc, hk, rank,
+                     mask);
     // U is in place, and every CTA runs before any peer writes into it
     cluster.sync();
 
@@ -468,16 +483,15 @@ auto sweep_kernel(const SweepGeometry& g) -> void (*)(S, SweepGeometry, int) {
     return g.joint == 2 ? lstm_fwd_sweep<S, 1, 2> : lstm_fwd_sweep<S, 1, 1>;
 }
 
-// Clusters of the geometry's kernel that the card holds at once, asked once
-// per configuration.
-template <class S>
-cudaError_t sweep_resident(const SweepGeometry& g, int device, int* resident) {
-    const auto kernel = sweep_kernel<S>(g);
+// Clusters of `cluster` CTAs of `smem` bytes of a sweep kernel that the
+// card holds at once, asked once per configuration.
+template <typename Kernel>
+cudaError_t sweep_resident(Kernel kernel, int cluster, size_t smem, int device, int* resident) {
     const void* key = reinterpret_cast<const void*>(kernel);
     std::lock_guard<std::mutex> lock(g_sweep_mutex);
     for (int i = 0; i < g_sweep_cached; ++i) {
         const SweepResident& e = g_sweep_resident[i];
-        if (e.kernel == key && e.cluster == g.cluster && e.smem == g.smem && e.device == device) {
+        if (e.kernel == key && e.cluster == cluster && e.smem == smem && e.device == device) {
             *resident = e.clusters;
             return cudaSuccess;
         }
@@ -485,23 +499,26 @@ cudaError_t sweep_resident(const SweepGeometry& g, int device, int* resident) {
     cudaError_t err = allow_dynamic_smem(kernel, kSmemLimit);
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = sweep_config(g.cluster, g.smem, nullptr, &attr);
+    const cudaLaunchConfig_t cfg = sweep_config(cluster, smem, nullptr, &attr);
     err = cudaOccupancyMaxActiveClusters(resident, kernel, &cfg);
     if (err != cudaSuccess) return err;
     if (g_sweep_cached < kSweepCache)
-        g_sweep_resident[g_sweep_cached++] = {key, g.cluster, g.smem, device, *resident};
+        g_sweep_resident[g_sweep_cached++] = {key, cluster, smem, device, *resident};
     return cudaSuccess;
 }
 
-// The sweep's geometry: the given (cluster, rows), or where either is 0 the
-// one of least cost (ties to the smaller cluster, then the smaller tile);
+// A sweep's geometry: the given (cluster, rows), or where either is 0 the
+// one of least cost (ties to the smaller cluster, then the smaller tile):
+// rounds of row tiles over the clusters the card holds at once times a
+// step's cost (the geometry's step_cost) times the CTAs that share an SM;
 // cudaErrorInvalidValue where the given one does not fit or the card holds
-// fewer than two of its clusters at once. `chosen`, unless null, gets the
-// cluster size, the rows per tile, the clusters the card holds at once and
-// the clusters launched per direction.
-template <class S>
-cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& per_dir,
-                           int* chosen) {
+// fewer than two of its clusters at once. make(cluster, rows) gives a
+// geometry (fits(), smem, step_cost()), kernel_of(geometry) its kernel.
+// `chosen`, unless null, gets the cluster size, the rows per tile, the
+// clusters the card holds at once and the clusters launched per direction.
+template <class Make, class KernelOf>
+cudaError_t plan_sweep(int batch, Make make, KernelOf kernel_of, int& cluster, int& rows,
+                       int& per_dir, int* chosen) {
     int device = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
@@ -511,18 +528,17 @@ cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& 
         long best = -1;
         for (int c = 2; c <= 8; c *= 2) {
             for (int r = 8; r <= kSweepMaxRows; r += 8) {
-                const SweepGeometry g(hidden, c, r, u_pieces<S>);
+                const auto g = make(c, r);
                 if (!g.fits()) continue;
                 int resident = 0;
-                err = sweep_resident<S>(g, device, &resident);
+                err = sweep_resident(kernel_of(g), c, g.smem, device, &resident);
                 if (err != cudaSuccess) return err;
                 if (resident < 2) continue;
                 const long tiles = (batch + r - 1) / r, clusters = resident / 2;
                 const long rounds = (tiles + clusters - 1) / clusters;
                 const long ctas = 2L * c * (tiles < clusters ? tiles : clusters);
                 const long share = (ctas + sms - 1) / sms;
-                const long per_warp = (g.items + kSweepWarps - 1) / kSweepWarps * g.item_tiles;
-                const long cost = rounds * share * (kTileCost * per_warp + kStepCost);
+                const long cost = rounds * share * g.step_cost();
                 if (best < 0 || cost < best) {
                     best = cost;
                     cluster = c;
@@ -532,10 +548,10 @@ cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& 
         }
         if (best < 0) return cudaErrorInvalidValue;
     }
-    const SweepGeometry g(hidden, cluster, rows, u_pieces<S>);
+    const auto g = make(cluster, rows);
     if (!g.fits()) return cudaErrorInvalidValue;
     int resident = 0;
-    err = sweep_resident<S>(g, device, &resident);
+    err = sweep_resident(kernel_of(g), cluster, g.smem, device, &resident);
     if (err != cudaSuccess) return err;
     if (resident < 2) return cudaErrorInvalidValue;
     const int tiles = (batch + rows - 1) / rows;
@@ -547,6 +563,15 @@ cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& 
         chosen[3] = per_dir;
     }
     return cudaSuccess;
+}
+
+// The forward sweep's geometry under policy S (plan_sweep).
+template <class S>
+cudaError_t plan_fwd_sweep(int batch, int hidden, int& cluster, int& rows, int& per_dir,
+                           int* chosen) {
+    return plan_sweep(
+        batch, [hidden](int c, int r) { return SweepGeometry(hidden, c, r, u_pieces<S>); },
+        [](const SweepGeometry& g) { return sweep_kernel<S>(g); }, cluster, rows, per_dir, chosen);
 }
 
 // Launch the sweep of policy s at a geometry from plan_fwd_sweep.

@@ -5,10 +5,9 @@
 // - one templated tensor-core product (mma_product) that each backward
 //   instantiates with its problems: the gate pre-activations, the weight
 //   sums dW, dU, db and dx;
-// - the reverse sweep with the carry dh_carry = dgates . U^T in float32 FMA
-//   (bilstm_bwd_sweep_fma), templated on a layout policy that maps
-//   (direction, row, step) to addresses, so one kernel body serves both
-//   backwards' layouts.
+// - the cell's backward that every reverse sweep runs (cell_backward): the
+//   float32 sweep on a thread-block cluster (lstm_bwd_sweep.cuh) and row 2's
+//   two bf16 sweeps (bilstm_stream_bwd.cu).
 //
 // A product problem P supplies:
 //   kAK, kBKMajor  whether A ([m][k]) and B ([n][k]) are K-major, else their
@@ -31,17 +30,6 @@
 // with three pieces |v - p0 - p1 - p2| <= 2^-24 |v|, and the pairs i + j >= 3
 // that the product drops are below 2^-24 of it: float32-level products in
 // six passes.
-//
-// The sweep's layout policy S supplies the fields gates (float32
-// pre-activations, a row of 4H per (direction, row, step)), pieces (the
-// dgates out, n_pieces bf16 rows of 4H per entry), c_out (float32), dh_out
-// (in T), ut (U^T, (2, 4H, H) in T), batch (rows per direction), t_len and
-// hidden, and
-//   time(dir, step)  the step's time index;
-//   row(dir, r, t)   the entry's row in gates and pieces;
-//   cell(dir, r, t)  the offset of unit 0 of the entry in c_out and dh_out;
-//   prev(dir, t)     the time index of c_prev, or -1 at the sequence edge
-//                    (the zero initial state).
 #pragma once
 
 #include "lstm_cell.cuh"
@@ -321,31 +309,7 @@ cudaError_t launch_product(const P& p, int n_extent, int m_extent, int z, cudaSt
     return cudaGetLastError();
 }
 
-// ---- the reverse sweep's cell and the float32 FMA sweep -------------------
-
-// One (row, unit)'s step: its gates, c_t, c_prev and dh_out.
-struct Cell {
-    float a[4], c, c_prev, dh_out;
-};
-
-// The values of (row, t, unit j) into v; with_c false takes c_t from
-// v.c_prev, the last step's c_prev (the sweep walks t one step at a time).
-template <typename T, class S>
-__device__ __forceinline__ void load_cell(const S& s, int dir, int row, int t, int j, Cell& v,
-                                          bool with_c) {
-    const float c_t = v.c_prev;
-    v = Cell{};
-    if (row >= s.batch) return;
-    const int hidden = s.hidden, gates = 4 * hidden;
-    const float* g = s.gates + s.row(dir, row, t) * gates + j;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) v.a[q] = g[q * hidden];
-    const size_t at = s.cell(dir, row, t) + j;
-    v.c = with_c ? s.c_out[at] : c_t;
-    v.dh_out = to_float(static_cast<const T*>(s.dh_out)[at]);
-    const int tp = s.prev(dir, t);
-    if (tp >= 0) v.c_prev = s.c_out[s.cell(dir, row, tp) + j];
-}
+// ---- the reverse sweeps' cell ---------------------------------------------
 
 // The cell's backward (pallas_bilstm_stream.py:110-136,
 // pallas_bilstm_train.py:108-125): dgates of the step from its gate
@@ -367,136 +331,5 @@ __device__ __forceinline__ void cell_backward(const float (&a)[4], float c, floa
     dg[3] = dh * tanh_c * o_g * (1.0f - o_g);
     dc = dcv * f_g;
 }
-
-// The dgates of (row, t, unit j) as the sweep's bf16 pieces.
-template <class S>
-__device__ __forceinline__ void store_pieces(const S& s, int dir, int row, int t, int j,
-                                             const float (&dg)[4]) {
-    const int gates = 4 * s.hidden;
-    bf16* out = s.pieces + s.row(dir, row, t) * s.n_pieces * gates + j;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-        float rest = dg[g];
-        for (int p = 0; p < s.n_pieces; ++p) {
-            const bf16 piece = __float2bfloat16_rn(rest);
-            out[p * gates + g * s.hidden] = piece;
-            rest -= __bfloat162float(piece);
-        }
-    }
-}
-
-// The sweep with the carry in float32 FMA. blockDim.x == H, a thread owning
-// one unit of every row; gridDim = (ceil(batch / R), 2), blockIdx.y the
-// direction. U^T streams through shared memory in chunks of
-// `FmaLayout::chunk` rows (cp.async, two buffers), read by every row of the
-// block. A step reads its R rows' gates before any thread writes their
-// pieces (where the pieces overwrite the gates in place). (Loading the next
-// step's gates during the carry, as the streaming backward's tensor-core
-// sweep does, ran 8-10% slower here on an H100.)
-template <typename T, int R>
-struct FmaLayout {
-    int chunk;  // rows of U^T a stage: 32, fewer where 32 rows pass 32 KB
-    size_t ut_off, total;
-    __host__ __device__ explicit FmaLayout(int hidden) {
-        chunk = 32;
-        while (chunk > 4 && static_cast<size_t>(chunk) * hidden * sizeof(T) > 32 * 1024) chunk /= 2;
-        ut_off = sizeof(float) * R * 5 * static_cast<size_t>(hidden);  // dh_s (R, H), dg_s (R, 4H)
-        total = ut_off + 2 * static_cast<size_t>(chunk) * hidden * sizeof(T);
-    }
-};
-
-template <typename T, int R, class S>
-__global__ void bilstm_bwd_sweep_fma(const S s) {
-    // (named apart from the including file's kernels, whose dynamic shared
-    // memory may have another type)
-    extern __shared__ __align__(16) unsigned char sweep_smem[];
-    const int hidden = blockDim.x, gates = 4 * hidden;
-    const FmaLayout<T, R> L(hidden);
-    const int j = threadIdx.x;
-    const int dir = blockIdx.y;
-    const int row0 = blockIdx.x * R;
-    float* dh_s = reinterpret_cast<float*>(sweep_smem);  // (R, H): dh_carry
-    float* dg_s = dh_s + R * hidden;               // (R, 4H): this step's dgates
-    T* ut_s = reinterpret_cast<T*>(sweep_smem + L.ut_off);  // 2 x (chunk, H) of U^T
-    const T* utd = static_cast<const T*>(s.ut) + static_cast<size_t>(dir) * gates * hidden;
-    constexpr int per = 16 / sizeof(T);
-    const int chunk_copies = L.chunk * hidden / per;
-    auto stage_ut = [&](int c, int buf) {
-        const T* src = utd + static_cast<size_t>(c) * L.chunk * hidden;
-        T* dst = ut_s + static_cast<size_t>(buf) * L.chunk * hidden;
-        for (int i = j; i < chunk_copies; i += hidden) cp_async16(dst + i * per, src + i * per);
-        cp_async_commit();
-    };
-
-    float dc[R];
-    Cell cell[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-        dc[r] = 0.0f;
-        dh_s[r * hidden + j] = 0.0f;
-        cell[r].c_prev = 0.0f;
-    }
-    for (int step = 0; step < s.t_len; ++step) {
-        const int t = s.time(dir, step);
-        stage_ut(0, 0);  // the carry's first chunk, in flight during the cell's backward
-#pragma unroll
-        for (int r = 0; r < R; ++r) load_cell<T>(s, dir, row0 + r, t, j, cell[r], step == 0);
-        __syncthreads();  // every gate of the step is read; dh_s and dg_s are free
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            float dg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if (row0 + r < s.batch) {
-                cell_backward<T>(cell[r].a, cell[r].c, cell[r].c_prev,
-                                 cell[r].dh_out + dh_s[r * hidden + j], dc[r], dg);
-                store_pieces(s, dir, row0 + r, t, j, dg);
-            }
-#pragma unroll
-            for (int g = 0; g < 4; ++g) dg_s[r * gates + g * hidden + j] = dg[g];
-        }
-
-        // dh_carry[r][j] = sum_k dgates[r][k] * U[j][k], U^T chunk by chunk
-        float carry[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) carry[r] = 0.0f;
-        const int chunks = gates / L.chunk;
-        for (int c = 0; c < chunks; ++c) {
-            if (c + 1 < chunks) {
-                stage_ut(c + 1, (c + 1) & 1);
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();  // chunk c (and at c = 0 dg_s) complete
-            const T* us = ut_s + static_cast<size_t>(c & 1) * L.chunk * hidden + j;
-            const float* dgk = dg_s + c * L.chunk;
-            for (int k = 0; k < L.chunk; k += 4) {
-                const float u0 = to_float(us[k * hidden]), u1 = to_float(us[(k + 1) * hidden]);
-                const float u2 = to_float(us[(k + 2) * hidden]), u3 = to_float(us[(k + 3) * hidden]);
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                    const float4 d = *reinterpret_cast<const float4*>(dgk + r * gates + k);
-                    carry[r] = fmaf(d.w, u3, fmaf(d.z, u2, fmaf(d.y, u1, fmaf(d.x, u0, carry[r]))));
-                }
-            }
-            __syncthreads();  // every read of this chunk's buffer is done
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) dh_s[r * hidden + j] = carry[r];
-    }
-}
-
-template <typename T, int R, class S>
-cudaError_t launch_sweep_fma(const S& s, cudaStream_t stream) {
-    const size_t smem = FmaLayout<T, R>(s.hidden).total;
-    if (smem > kSmemLimit) return cudaErrorInvalidValue;
-    const cudaError_t err = allow_dynamic_smem(bilstm_bwd_sweep_fma<T, R, S>, smem);
-    if (err != cudaSuccess) return err;
-    bilstm_bwd_sweep_fma<T, R, S><<<dim3((s.batch + R - 1) / R, 2), dim3(s.hidden), smem, stream>>>(s);
-    return cudaGetLastError();
-}
-
-// The FMA sweep's rows a block: 4, or 8 from B = 4096 (on an H100 at
-// B = 10,000, 8 ran 14-19% faster than 4, and 16 rows slower than both).
-inline int fma_sweep_rows(int batch) { return batch >= 4096 ? 8 : 4; }
 
 }  // namespace

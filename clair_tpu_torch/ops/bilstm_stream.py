@@ -34,7 +34,12 @@ on the card. ``bilstm_stream.launches`` and
 point (the backward's runs four kernels). ``split_bf16_product`` is the
 plain version of the backward kernel's split-bf16 tensor-core product, for
 the tests; ``forward_geometry`` runs the forward kernel at a given cluster
-size and rows per tile, for the checks of every geometry.
+size and rows per tile, and ``_backward_launch`` the backward at a given
+geometry of its sweep, both counting nothing, for the checks of every
+geometry. The backward's float32 mode runs the reverse sweep of
+``csrc/lstm_bwd_sweep.cuh`` (U's pieces held across a thread-block cluster,
+dgates.U^T on the tensor cores); ``check_bwd_sweep_width`` raises
+ValueError before any launch where no geometry of it fits.
 """
 
 from __future__ import annotations
@@ -47,24 +52,28 @@ import torch
 
 from clair_tpu_torch.models.bilstm import bilstm_with_cell
 from clair_tpu_torch.ops.build import entry, launch, on_cuda
-from clair_tpu_torch.ops.lstm_sweep import check_sweep_width, sweep_geometries
+from clair_tpu_torch.ops.lstm_sweep import (
+    check_bwd_sweep_width, check_sweep_width, sweep_geometries,
+)
 
 _FWD_KERNEL = "bilstm_stream_fwd"
 _BWD_KERNEL = "bilstm_stream_bwd"
 _DTYPES = (torch.float32, torch.bfloat16)
-# the backward's largest hidden size (its FMA sweep: one thread per hidden
-# unit); the forward takes, in bf16, any size whose weights fit a cluster's
-# shared memory, and in float32 any the sweep fits (check_f32_width)
+# the largest hidden size (the bf16 backward's FMA sweep above H = 128: one
+# thread per hidden unit); the forward takes, in bf16, any size whose
+# weights fit a cluster's shared memory, and in float32 any the sweep fits
+# (check_f32_width); the float32 backward any its reverse sweep fits
+# (check_bwd_sweep_width)
 _MAX_HIDDEN = 1024
+# the bf16 backward holds U in shared memory up to this H, and above it
+# reads U transposed from L2 (csrc/bilstm_stream_bwd.cu: launch_bf16_sweep)
+_BF16_SHARED_U = 128
 # the backward's weight sums: rows per chunk of the split reduction, and
 # the most chunks (their float32 partials are summed by the caller)
 _SPLIT_ROWS = 2048
 _MAX_SPLITS = 32
 _ROW_TILE = 128  # the backward's products: the grid's second axis counts 128-row tiles
 _MAX_GRID_Y = 65535
-# the backward's sweep: rows a block, 0 for the kernel's choice from the
-# shape (tools/torch_stream_bwd_parts.py sets it to compare the others)
-_SWEEP_ROWS = 0
 # the bf16 pieces the backward kernel cuts a float32 operand of a product
 # into (csrc/bilstm_stream_bwd.cu, "Numerics"), by the compute dtype: 2 for
 # the dgates in bf16 mode, 3 for every float32 operand in float32 mode
@@ -147,15 +156,15 @@ def bilstm_stream_backward_reference(x, w, u, b, h_out, c_out, dh_out, *, need_d
     direction. Gates, dh, dc and the sums run in float32 from the
     input-type values, as in the kernel. ``emulate_kernel``: every product
     runs as the kernel's split-bf16 product (``split_bf16_product`` with
-    ``KERNEL_PIECES[x.dtype]``), the bf16 carry too (H <= 128: U in shared
-    memory); the float32 carry stays float32, as in the kernel."""
+    ``KERNEL_PIECES[x.dtype]``), the carry dgates.U^T too: three-piece
+    dgates against three-piece U in float32 (the cluster sweep), two-piece
+    dgates against bf16 U in bf16 (H <= 128: U in shared memory)."""
     batch, t_len, _ = x.shape
     hidden = u.shape[1]
     xf, wf, uf = x.float(), w.float(), u.float()
     product = torch.einsum
     if emulate_kernel:
         product = functools.partial(split_bf16_product, pieces=KERNEL_PIECES[x.dtype])
-    carry_on_pieces = emulate_kernel and x.dtype == torch.bfloat16
 
     c, dh_out = _per_dir(c_out, hidden), _per_dir(dh_out, hidden)
     h_prev, c_prev = _prev(_per_dir(h_out, hidden)), _prev(c)
@@ -184,7 +193,7 @@ def bilstm_stream_backward_reference(x, w, u, b, h_out, c_out, dh_out, *, need_d
                         dh * th * o_t * (1.0 - o_t)], dim=-1)
         dgates[0, :, ts[0]] = dg[0]
         dgates[1, :, ts[1]] = dg[1]
-        dh_carry = product("dbg,dgj->dbj", dg, u_t) if carry_on_pieces else torch.bmm(dg, u_t)
+        dh_carry = product("dbg,dgj->dbj", dg, u_t) if emulate_kernel else torch.bmm(dg, u_t)
         dc_carry = dc * f_t
 
     dw = product("btf,dbtg->dfg", xf, dgates)
@@ -211,7 +220,7 @@ def _unstacked(w, u, b) -> Dict:
 _FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 5
 _FWD_GEOMETRY_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
                           + [ctypes.c_void_p])
-_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 9
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, b: torch.Tensor) -> None:
@@ -373,6 +382,65 @@ def _scratch_bytes(rows: int, feat: int, hidden: int) -> int:
                     + 2 * rows * gates)
 
 
+def _backward_launch(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True, cluster=0, rows=0):
+    """The backward kernel on the card, on checked inputs: (dx in x.dtype
+    or None, dw, du, db float32), the weight sums' chunks summed here in a
+    fixed order. The sweep's geometry (0: the kernel's choice): float32 the
+    reverse sweep at ``cluster`` CTAs and ``rows`` rows a tile; bf16
+    ``rows`` rows a block (16 or 32 with U in shared memory, 4 or 8 above H
+    = 128). Raises ValueError before any launch where the kernel cannot take
+    the widths, and RuntimeError on any CUDA error, a given geometry that
+    does not fit or launch included. Counts no launch:
+    ``bilstm_stream_backward`` counts its own calls, and the checks of every
+    geometry count none."""
+    batch, t_len, feat = x.shape
+    hidden = u.shape[1]
+    if feat % 8 or hidden % 8:
+        # the products stage 16-byte chunks of [x | h] rows
+        raise ValueError(f"the backward kernel takes F and H in multiples of 8, not "
+                         f"F = {feat}, H = {hidden}")
+    if x.dtype == torch.float32:
+        check_bwd_sweep_width(hidden)
+    n_rows = batch * t_len
+    if -(-n_rows // _ROW_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"B*T = {n_rows} rows exceed the backward products' grid")
+    # the kernels read 16-byte chunks: an unaligned view is copied
+    x, w, u, h_out, c_out, dh_out = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                     for t in (x, w, u, h_out, c_out, dh_out))
+    splits, rows_per_split = _split_rows(n_rows)
+    # the bf16 FMA sweep (H > 128) reads U transposed, coalesced (a layout
+    # copy of 2*H*4H values, not a product)
+    u_t = (u.transpose(1, 2).contiguous()
+           if x.dtype == torch.bfloat16 and hidden > _BF16_SHARED_U else None)
+    # the gates; in bf16 the sweep overwrites each row in place with its
+    # dgates' two bf16 pieces after reading it
+    dgates = torch.empty((2, batch, t_len, 4 * hidden), dtype=torch.float32, device=x.device)
+    # float32: the three bf16 pieces of x, h_out, W, U and the dgates
+    scratch = (torch.empty(_scratch_bytes(n_rows, feat, hidden), dtype=torch.uint8,
+                           device=x.device)
+               if x.dtype == torch.float32 else None)
+    partial = torch.empty((splits, 2, feat + hidden + 1, 4 * hidden),
+                          dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x) if need_dx else None
+    fn = entry(_BWD_KERNEL, "clair_bilstm_stream_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), u.data_ptr(),
+                 None if u_t is None else u_t.data_ptr(), b.data_ptr(),
+                 h_out.data_ptr(), c_out.data_ptr(), dh_out.data_ptr(),
+                 dgates.data_ptr(), partial.data_ptr(), None if dx is None else dx.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(),
+                 0 if scratch is None else scratch.numel(),
+                 batch, t_len, feat, hidden, splits, rows_per_split, cluster, rows,
+                 int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{_BWD_KERNEL} (clair_bilstm_stream_bwd) launch failed at sweep "
+                           f"(cluster, rows) = ({cluster}, {rows}): CUDA error {err}")
+    # the per-direction sum of the chunks' partials, in a fixed order (the
+    # JAX caller sums its per-tile partials outside the kernel the same way)
+    sums = partial.sum(dim=0)
+    return dx, sums[:, :feat], sums[:, feat:feat + hidden], sums[:, feat + hidden]
+
+
 def bilstm_stream_backward(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
     """The backward of one layer on stacked parameters: (dx in x.dtype or
     None, dw, du, db float32). Same inputs and outputs as
@@ -381,7 +449,7 @@ def bilstm_stream_backward(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
         return bilstm_stream_backward_reference(x, w, u, b, h_out, c_out, dh_out,
                                                 need_dx=need_dx)
     _check(x, w, u, b)
-    batch, t_len, feat = x.shape
+    batch, t_len, _ = x.shape
     hidden = u.shape[1]
     out_shape = (batch, t_len, 2 * hidden)
     for name, t, dtype in (("h_out", h_out, x.dtype), ("c_out", c_out, torch.float32),
@@ -391,42 +459,9 @@ def bilstm_stream_backward(x, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if feat % 8 or hidden % 8:
-        # the products stage 16-byte chunks of [x | h] rows
-        raise ValueError(f"the backward kernel takes F and H in multiples of 8, not "
-                         f"F = {feat}, H = {hidden}")
-    rows = batch * t_len
-    if -(-rows // _ROW_TILE) > _MAX_GRID_Y:
-        raise ValueError(f"B*T = {rows} rows exceed the backward products' grid")
-    # the kernels read 16-byte chunks: an unaligned view is copied
-    x, w, u, h_out, c_out, dh_out = (t if t.data_ptr() % 16 == 0 else t.clone()
-                                     for t in (x, w, u, h_out, c_out, dh_out))
-    splits, rows_per_split = _split_rows(rows)
-    # U transposed, so the FMA sweep's dh carry reads it coalesced (a
-    # layout copy of 2*H*4H values, not a product)
-    u_t = u.transpose(1, 2).contiguous()
-    # the gates; in bf16 the sweep overwrites each row in place with its
-    # dgates' two bf16 pieces after reading it
-    dgates = torch.empty((2, batch, t_len, 4 * hidden), dtype=torch.float32, device=x.device)
-    # float32: the three bf16 pieces of x, h_out, W, U and the dgates
-    scratch = (torch.empty(_scratch_bytes(rows, feat, hidden), dtype=torch.uint8, device=x.device)
-               if x.dtype == torch.float32 else None)
-    partial = torch.empty((splits, 2, feat + hidden + 1, 4 * hidden),
-                          dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x) if need_dx else None
-    launch(_BWD_KERNEL, "clair_bilstm_stream_bwd", _BWD_ARGTYPES, x.device,
-           x.data_ptr(), w.data_ptr(), u.data_ptr(), u_t.data_ptr(), b.data_ptr(),
-           h_out.data_ptr(), c_out.data_ptr(), dh_out.data_ptr(),
-           dgates.data_ptr(), partial.data_ptr(), dx.data_ptr() if need_dx else None,
-           None if scratch is None else scratch.data_ptr(),
-           0 if scratch is None else scratch.numel(),
-           batch, t_len, feat, hidden, splits, rows_per_split, _SWEEP_ROWS,
-           int(x.dtype == torch.bfloat16))
+    out = _backward_launch(x, w, u, b, h_out, c_out, dh_out, need_dx=need_dx)
     bilstm_stream_backward.launches += 1
-    # the per-direction sum of the chunks' partials, in a fixed order (the
-    # JAX caller sums its per-tile partials outside the kernel the same way)
-    sums = partial.sum(dim=0)
-    return dx, sums[:, :feat], sums[:, feat:feat + hidden], sums[:, feat + hidden]
+    return out
 
 
 class _BiLSTMStream(torch.autograd.Function):

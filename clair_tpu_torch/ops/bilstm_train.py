@@ -21,13 +21,18 @@ nothing, for this module's wrapper and for ``ops/bilstm2.py``, and
 that no geometry fits raises ValueError before a launch. The
 backward is four kernels behind one entry point, built from the streaming
 backward's parts (``csrc/mma_product.cuh``): every step's gates in one
-tensor-core product, a float32 reverse sweep that carries dh and dc and
-writes dgates as bf16 pieces, the weight sums over fixed row chunks, and dx
-per direction; every product takes float32 operands as three bf16 pieces
-(six passes, float32 sums). This wrapper allocates the gates, the pieces'
-scratch and the chunks' partials per call, sums the partials per direction
-in a fixed order (as ``_bilstm_bwd`` sums its per-tile partials), and the
-autograd backward un-reverses dx and adds the two directions' halves. The
+tensor-core product, the float32 reverse sweep of ``csrc/lstm_bwd_sweep.cuh``
+that carries dh and dc (U's pieces held across a thread-block cluster,
+dgates.U^T on the tensor cores) and writes dgates as bf16 pieces, the weight
+sums over fixed row chunks, and dx per direction; every product takes
+float32 operands as three bf16 pieces (six passes, float32 sums).
+``_backward_launch`` runs them at a given geometry of the sweep, counting
+nothing, and ``ops/lstm_sweep.py`` keeps the reverse sweep's arithmetic, so
+a width that no geometry fits raises ValueError before a launch. The
+wrapper allocates the gates, the pieces' scratch and the chunks' partials
+per call, sums the partials per direction in a fixed order (as
+``_bilstm_bwd`` sums its per-tile partials), and the autograd backward
+un-reverses dx and adds the two directions' halves. The
 batch is not padded: the kernels mask the ragged edge, so rows past the
 batch have no cotangent. On the card F and H must be multiples of 8.
 
@@ -56,14 +61,13 @@ from clair_tpu_torch.models.bilstm import _gate_update, _stack_directions, _unst
 from clair_tpu_torch.ops.bilstm_stream import (
     _MAX_GRID_Y, _ROW_TILE, KERNEL_PIECES, _split_rows, split_bf16_product,
 )
-from clair_tpu_torch.ops.build import entry, launch, on_cuda
-from clair_tpu_torch.ops.lstm_sweep import check_sweep_width
+from clair_tpu_torch.ops.build import entry, on_cuda
+from clair_tpu_torch.ops.lstm_sweep import check_bwd_sweep_width, check_sweep_width
 
 _KERNEL = "bilstm_train"
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
-_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 6
-_MAX_HIDDEN = 1024  # the backward's sweep: one thread per hidden unit
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 8
 _CUDA_ERROR_INVALID_VALUE = 1  # the forward's answer to a geometry that does not fit
 
 def _check_sweep(feat: int, hidden: int, rows: int) -> None:
@@ -111,9 +115,9 @@ def bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh_out, *, need_d
     with ``bmm`` for the carried product. Takes the forward's inputs and
     outputs and dh_out (T, 2B, H); returns (dx (T, 2B, F) or None, dw
     (2, F, 4H), du (2, H, 4H), db (2, 4H)), all float32. ``emulate_kernel``:
-    the gate, weight-sum and dx products run as the kernel's split-bf16
-    product (``split_bf16_product``, three pieces an operand); the carry
-    stays float32, as in the kernel."""
+    every product runs as the kernel's split-bf16 product
+    (``split_bf16_product``, three pieces an operand): the gates, the weight
+    sums, dx and the carry dgates.U^T (the cluster sweep's)."""
     t_len, n2, feat = xs.shape
     batch, hidden = n2 // 2, u.shape[1]
     product = torch.einsum
@@ -144,7 +148,8 @@ def bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh_out, *, need_d
                                dc * c_prev[t] * f[t] * (1.0 - f[t]),
                                dc * i[t] * (1.0 - g[t] * g[t]),
                                dh * tanh_c[t] * o[t] * (1.0 - o[t])], dim=-1)
-        dh_carry = torch.bmm(dgates[t], u_t)
+        dh_carry = (product("dbg,dgj->dbj", dgates[t], u_t) if emulate_kernel
+                    else torch.bmm(dgates[t], u_t))
         dc_carry = dc * f[t]
 
     dw = product("tdbf,tdbg->dfg", x, dgates)
@@ -175,8 +180,8 @@ def _check(xs, w, u, b) -> None:
     if xs.dim() != 3 or min(xs.shape) < 1 or xs.shape[1] % 2:
         raise ValueError(f"xs must be a non-empty (T, 2B, F) tensor, got {tuple(xs.shape)}")
     feat, hidden = xs.shape[2], u.shape[1]
-    if not 1 <= hidden <= _MAX_HIDDEN:
-        raise ValueError(f"hidden size {hidden} outside 1..{_MAX_HIDDEN}")
+    if hidden < 1:
+        raise ValueError(f"hidden size {hidden} is below 1")
     want = {"w": (2, feat, 4 * hidden), "u": (2, hidden, 4 * hidden), "b": (2, 4 * hidden)}
     for name, t in (("w", w), ("u", u), ("b", b)):
         if tuple(t.shape) != want[name]:
@@ -235,16 +240,59 @@ def _scratch_bytes(rows2: int, feat: int, hidden: int) -> int:
     return 2 * 3 * (rows2 * (feat + hidden + gates) + 2 * (feat + hidden) * gates)
 
 
+def _backward_launch(xs, w, u, b, h_out, c_out, dh_out, *, need_dx=True, cluster=0, rows=0):
+    """The backward kernels on the card, on checked stacked inputs: (dx
+    (T, 2B, F) or None, dw, du, db), the weight sums' chunks summed here per
+    direction in a fixed order; the reverse sweep at ``cluster`` CTAs and
+    ``rows`` rows a tile (0: the kernel's choice). Raises ValueError before
+    any launch where the kernels cannot take the widths, and RuntimeError on
+    any CUDA error, a given geometry that does not fit or launch included.
+    Counts no launch: ``bilstm_train_backward`` counts its own calls, and
+    the checks of every geometry count none."""
+    t_len, n2, feat = xs.shape
+    hidden = u.shape[1]
+    if feat % 8 or hidden % 8:
+        # the products stage 16-byte chunks of [xs | h] rows
+        raise ValueError(f"the backward kernel takes F and H in multiples of 8, not "
+                         f"F = {feat}, H = {hidden}")
+    check_bwd_sweep_width(hidden)
+    batch, width, gates = n2 // 2, feat + hidden, 4 * hidden
+    n_rows = batch * t_len  # a direction's rows in the products
+    if -(-n_rows // _ROW_TILE) > _MAX_GRID_Y:
+        raise ValueError(f"T*B = {n_rows} rows exceed the backward products' grid")
+    splits, rows_per_split = _split_rows(n_rows)
+    # the sweep reads c and dh_out 16 bytes at a time: an unaligned view is
+    # copied
+    c_out, dh_out = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (c_out, dh_out))
+    gate_buf = torch.empty((t_len, n2, gates), dtype=torch.float32, device=xs.device)
+    scratch = torch.empty(_scratch_bytes(t_len * n2, feat, hidden), dtype=torch.uint8,
+                          device=xs.device)
+    partial = torch.empty((splits, 2, width + 1, gates), dtype=torch.float32, device=xs.device)
+    dx = torch.empty_like(xs) if need_dx else None
+    fn = entry(_KERNEL, "clair_bilstm_train_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(xs.device):
+        err = fn(xs.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(), h_out.data_ptr(),
+                 c_out.data_ptr(), dh_out.data_ptr(), gate_buf.data_ptr(), partial.data_ptr(),
+                 None if dx is None else dx.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                 batch, t_len, feat, hidden, splits, rows_per_split, cluster, rows,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{_KERNEL} (clair_bilstm_train_bwd) launch failed at sweep "
+                           f"(cluster, rows) = ({cluster}, {rows}): CUDA error {err}")
+    # the per-direction sum of the chunks' partials, in a fixed order
+    sums = partial.sum(dim=0)
+    return dx, sums[:, :feat], sums[:, feat:width], sums[:, width]
+
+
 def bilstm_train_backward(xs, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
     """The backward of one layer on the stacked layout: (dx (T, 2B, F) or
     None, dw, du, db), float32. Same inputs and outputs as
-    ``bilstm_train_backward_reference``; a CUDA tensor runs the kernels,
-    whose per-chunk partials are summed here in a fixed order."""
+    ``bilstm_train_backward_reference``; a CUDA tensor runs the kernels."""
     if not on_cuda(xs, "bilstm_train_backward"):
         return bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh_out,
                                                need_dx=need_dx)
     _check(xs, w, u, b)
-    t_len, n2, feat = xs.shape
+    t_len, n2, _ = xs.shape
     hidden = u.shape[1]
     for name, t in (("h_out", h_out), ("c_out", c_out), ("dh_out", dh_out)):
         if (tuple(t.shape) != (t_len, n2, hidden) or t.dtype != torch.float32
@@ -252,32 +300,9 @@ def bilstm_train_backward(xs, w, u, b, h_out, c_out, dh_out, *, need_dx=True):
             raise ValueError(f"{name} must be a contiguous float32 {(t_len, n2, hidden)} "
                              f"tensor on {xs.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-    if feat % 8 or hidden % 8:
-        # the products stage 16-byte chunks of [xs | h] rows
-        raise ValueError(f"the backward kernel takes F and H in multiples of 8, not "
-                         f"F = {feat}, H = {hidden}")
-    batch, width, gates = n2 // 2, feat + hidden, 4 * hidden
-    rows = batch * t_len  # a direction's rows in the products
-    if -(-rows // _ROW_TILE) > _MAX_GRID_Y:
-        raise ValueError(f"T*B = {rows} rows exceed the backward products' grid")
-    splits, rows_per_split = _split_rows(rows)
-    # U transposed, so the sweep's dh carry reads it coalesced (a layout
-    # copy of 2*H*4H values, not a product)
-    u_t = u.transpose(1, 2).contiguous()
-    gate_buf = torch.empty((t_len, n2, gates), dtype=torch.float32, device=xs.device)
-    scratch = torch.empty(_scratch_bytes(t_len * n2, feat, hidden), dtype=torch.uint8,
-                          device=xs.device)
-    partial = torch.empty((splits, 2, width + 1, gates), dtype=torch.float32, device=xs.device)
-    dx = torch.empty_like(xs) if need_dx else None
-    launch(_KERNEL, "clair_bilstm_train_bwd", _BWD_ARGTYPES, xs.device,
-           xs.data_ptr(), w.data_ptr(), u.data_ptr(), u_t.data_ptr(), b.data_ptr(),
-           h_out.data_ptr(), c_out.data_ptr(), dh_out.data_ptr(), gate_buf.data_ptr(),
-           partial.data_ptr(), dx.data_ptr() if need_dx else None, scratch.data_ptr(),
-           scratch.numel(), batch, t_len, feat, hidden, splits, rows_per_split)
+    out = _backward_launch(xs, w, u, b, h_out, c_out, dh_out, need_dx=need_dx)
     bilstm_train_backward.launches += 1
-    # the per-direction sum of the chunks' partials, in a fixed order
-    sums = partial.sum(dim=0)
-    return dx, sums[:, :feat], sums[:, feat:width], sums[:, width]
+    return out
 
 
 def stacked_cotangent(dout: torch.Tensor, hidden: int) -> torch.Tensor:

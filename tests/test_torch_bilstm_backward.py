@@ -14,11 +14,13 @@ import pytest
 import torch
 
 import clair_tpu.ops.pallas_bilstm_stream as PS
+import clair_tpu_torch.ops.bilstm_stream as BS
 from clair_tpu_torch.models.bilstm import bilstm_with_cell
 from clair_tpu_torch.ops.bilstm_stream import (
     KERNEL_PIECES, _stack_params, _unstacked, bilstm_stream, bilstm_stream_backward,
     bilstm_stream_backward_reference, gate_preactivations, split_bf16_product,
 )
+from clair_tpu_torch.ops.lstm_sweep import bwd_sweep_geometries
 
 # the geometries of tests/test_pallas_bilstm_stream.py
 GEOMETRIES = [
@@ -269,6 +271,36 @@ def test_cell_states_form_refuses_a_gradient():
     assert h.grad_fn is None and c.dtype == torch.float32
 
 
+class _EntryReached(Exception):
+    """Raised by a stand-in for the kernel's entry point."""
+
+
+def test_float32_backward_refuses_what_no_reverse_geometry_fits(monkeypatch):
+    """On the card path, a float32 width that no geometry of the reverse
+    sweep fits (H = 264) raises ValueError before the entry point is
+    reached; bf16 takes the same width (its FMA sweep above H = 128) and
+    reaches it."""
+    def entry(*args):
+        raise _EntryReached(args[1])
+
+    monkeypatch.setattr(BS, "on_cuda", lambda x, name: True)
+    monkeypatch.setattr(BS, "entry", entry)
+    params, x, weight = _numpy_inputs((2, 3, 8, 264), seed=12)
+    before = bilstm_stream_backward.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        w, u, b = _stack_params(_leaves(params, False), dtype)
+        xd = torch.from_numpy(x).to(dtype)
+        h_out, c_out = bilstm_with_cell(_unstacked(w, u, b), xd)
+        dh = torch.from_numpy(weight).to(dtype)
+        if dtype == torch.float32:
+            with pytest.raises(ValueError, match="shared memory"):
+                bilstm_stream_backward(xd, w, u, b, h_out, c_out, dh)
+        else:
+            with pytest.raises(_EntryReached, match="clair_bilstm_stream_bwd"):
+                bilstm_stream_backward(xd, w, u, b, h_out, c_out, dh)
+    assert bilstm_stream_backward.launches == before
+
+
 def test_wrappers_on_cpu_launch_no_kernel():
     params, x, weight = _numpy_inputs(GEOMETRIES[3], seed=5)
     before = (bilstm_stream.launches, bilstm_stream_backward.launches)
@@ -310,3 +342,28 @@ def test_cuda_backward_kernel_matches_plain_on_the_card(geometry):
                 assert _cosine(g, r) > 0.99, name
                 assert (g - r).abs().max() <= 1e-2 * r.abs().max(), name
     assert bilstm_stream_backward.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(100, 33, 32, 128), (100, 33, 256, 128), GEOMETRIES[3]])
+def test_cuda_float32_backward_at_every_reverse_sweep_geometry(geometry):
+    """The float32 backward at every (cluster, rows) of the reverse sweep
+    that ``bwd_sweep_geometries`` lists, each of which must launch, against
+    the plain sweep: dx, dW, dU and db within 3e-4 of the reference's max
+    magnitude; each counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, x, weight = _numpy_inputs(geometry, seed=13)
+    w, u, b = (t.cuda() for t in _stack_params(_leaves(params, False), torch.float32))
+    xd, dh = torch.from_numpy(x).cuda(), torch.from_numpy(weight).cuda()
+    h_out, c_out = bilstm_with_cell(_unstacked(w, u, b), xd)
+    want = bilstm_stream_backward_reference(xd, w, u, b, h_out, c_out, dh)
+    before, candidates = bilstm_stream_backward.launches, bwd_sweep_geometries(geometry[3])
+    assert candidates
+    for cluster, rows in candidates:
+        got = BS._backward_launch(xd, w, u, b, h_out, c_out, dh, cluster=cluster, rows=rows)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dx", "dw", "du", "db"), got, want):
+            assert (g - r).abs().max() <= 3e-4 * r.abs().max(), (name, cluster, rows)
+    assert bilstm_stream_backward.launches == before

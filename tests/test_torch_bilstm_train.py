@@ -21,7 +21,10 @@ from clair_tpu_torch.ops.bilstm_train import (
     _stack_params, bilstm_train, bilstm_train_backward, bilstm_train_backward_reference,
     bilstm_train_forward, bilstm_train_reference, input_grad, stacked_cotangent,
 )
-from clair_tpu_torch.ops.lstm_sweep import SWEEP_CLUSTERS, sweep_geometries, sweep_layout
+from clair_tpu_torch.ops.lstm_sweep import (
+    SWEEP_CLUSTERS, bwd_sweep_geometries, bwd_sweep_layout, check_bwd_sweep_width,
+    sweep_geometries, sweep_layout,
+)
 
 # the geometries of tests/test_pallas_bilstm_train.py
 GEOMETRIES = [
@@ -41,6 +44,11 @@ VALUE_TOL, GRAD_TOL = 2e-5, 3e-4
 # plain sweep vs autograd of the plain forward: the same float32 products on
 # the CPU, summed in another order
 PLAIN_RTOL, PLAIN_ATOL = 1e-4, 1e-5
+# the reverse sweep (csrc/lstm_bwd_sweep.cuh) at the widths it serves: the
+# widest tile (rows) that fits at each cluster size; every multiple of 8 up
+# to it fits too, and nothing at the sizes left out
+REVERSE_WIDEST = {8: {2: 128, 4: 128, 8: 128}, 32: {2: 128, 4: 128, 8: 128},
+                  128: {2: 16, 4: 64, 8: 128}, 256: {8: 16}}
 
 
 @pytest.fixture
@@ -178,6 +186,57 @@ def test_sweep_refuses_what_no_geometry_fits_before_any_launch(monkeypatch):
     assert entries == [] and bilstm_train.launches == before
 
 
+@pytest.mark.parametrize("hidden", sorted(REVERSE_WIDEST))
+def test_reverse_sweep_geometries_at_the_widths_it_serves(hidden):
+    """The reverse sweep's carve-up (ops/lstm_sweep.py, the arithmetic of
+    csrc/lstm_bwd_sweep.cuh: BwdSweepGeometry) at H = 8 (the tiny
+    geometry), 32 (the demo's), 128 (ModelConfig's) and 256 (the widest a
+    float32 forward takes): a CTA holds U's three bf16 pieces for its uc
+    units' four gates over C * uc rows, the step's dgates as three pieces,
+    and C float32 receive slots of rows x uc padded to 16k + 4 floats,
+    within 227 KB, and at most two (row, 4 units) cells a thread."""
+    geometries = bwd_sweep_geometries(hidden)
+    widest = REVERSE_WIDEST[hidden]
+    assert geometries == [(c, r) for c in SWEEP_CLUSTERS if c in widest
+                          for r in range(8, widest[c] + 1, 8)]
+    for cluster in SWEEP_CLUSTERS:
+        uc = (-(-hidden // cluster) + 7) // 8 * 8  # H / C rounded up, then to 8
+        pitch = -(-uc // 16) * 16 + 4
+        for rows in range(8, 129, 8):
+            smem = (2 * 3 * 4 * uc * cluster * uc + 2 * 3 * rows * 4 * uc
+                    + 4 * cluster * rows * pitch)
+            cells = rows * uc // 4
+            assert bwd_sweep_layout(hidden, cluster, rows) == (smem, -(-cells // 256))
+            assert ((cluster, rows) in geometries) == (smem <= SMEM_LIMIT and cells <= 2 * 256)
+    if hidden == 128:
+        # U's three pieces take 384 KB / C; a cluster of 2 has room for 16 rows
+        assert bwd_sweep_layout(128, 2, 16)[0] - 2 * 3 * 16 * 256 - 4 * 2 * 16 * 68 == 384 * 1024 // 2
+    check_bwd_sweep_width(hidden)  # raises nothing
+
+
+@pytest.mark.parametrize("hidden, match", [(264, "shared memory"), (512, "shared memory"),
+                                           (12, "multiples of 8")])
+def test_reverse_sweep_refuses_what_no_geometry_fits_before_any_launch(hidden, match,
+                                                                       monkeypatch):
+    """Where no reverse-sweep geometry fits (H = 264: U's pieces alone take
+    300 KB at a cluster of 8) or H is no multiple of 8, the check raises
+    ValueError, and the training backward raises it on the card path
+    before its entry point is reached."""
+    with pytest.raises(ValueError, match=match):
+        check_bwd_sweep_width(hidden)
+    entries = []
+    monkeypatch.setattr(BT, "on_cuda", lambda x, name: True)
+    monkeypatch.setattr(BT, "entry", lambda *a: entries.append(a))
+    params, x, weight = _numpy_inputs((2, 3, 8, hidden), seed=9)
+    w, u, b = _stack_params(_leaves(params, False))
+    xs = _stack_directions(torch.from_numpy(x)).contiguous()
+    h_out, c_out = bilstm_train_reference(xs, w, u, b)
+    before = bilstm_train_backward.launches
+    with pytest.raises(ValueError, match=match):
+        bilstm_train_backward(xs, w, u, b, h_out, c_out, torch.zeros_like(h_out))
+    assert entries == [] and bilstm_train_backward.launches == before
+
+
 @pytest.mark.parametrize("geometry", [GEOMETRIES[2], GEOMETRIES[3]])
 def test_plain_sweep_matches_autograd_of_plain_forward(geometry):
     """On the stacked layout: dx, dW, dU and db of the plain reverse sweep
@@ -274,3 +333,30 @@ def test_cuda_forward_at_every_sweep_geometry(geometry):
             assert (g - r).abs().max().item() <= 1e-4, (cluster, rows)
         launched.append((cluster, rows))
     assert launched and bilstm_train.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(100, 33, 32, 128), (100, 33, 256, 128), (8, 7, 16, 8),
+                                      (13, 9, 24, 40)])
+def test_cuda_backward_at_every_reverse_sweep_geometry(geometry):
+    """The backward kernels at every (cluster, rows) of the reverse sweep
+    that ``bwd_sweep_geometries`` lists, each of which must launch, against
+    the plain backward: dx, dW, dU and db within 3e-4 of the reference's max
+    magnitude; each counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params, x, weight = _numpy_inputs(geometry, seed=10)
+    w, u, b = (t.cuda() for t in _stack_params(_leaves(params, False)))
+    xs = _stack_directions(torch.from_numpy(x).cuda()).contiguous()
+    dh = _stack_directions(torch.from_numpy(weight).cuda()[..., :geometry[3]]).contiguous()
+    h_out, c_out = bilstm_train_reference(xs, w, u, b)
+    want = bilstm_train_backward_reference(xs, w, u, b, h_out, c_out, dh)
+    before, candidates = bilstm_train_backward.launches, bwd_sweep_geometries(geometry[3])
+    assert candidates
+    for cluster, rows in candidates:
+        got = BT._backward_launch(xs, w, u, b, h_out, c_out, dh, cluster=cluster, rows=rows)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dx", "dw", "du", "db"), got, want):
+            assert (g - r).abs().max() <= 3e-4 * r.abs().max(), (name, cluster, rows)
+    assert bilstm_train_backward.launches == before

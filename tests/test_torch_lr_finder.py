@@ -142,3 +142,27 @@ def test_trace_split_ties_each_kernel_to_its_part(tmp_path):
                                     "loss": 0.003, "backward": 0.01, "optimizer": 0.004}
     assert "eval_gemm" not in split["kernels_ms_per_step"]
     assert split["total_ms_per_step"] == pytest.approx(0.062)
+
+
+@pytest.mark.parametrize("kernel", [
+    "void (anonymous namespace)::lstm_bwd_sweep<(anonymous namespace)::SweepArgs, 2>(S)",
+    "void (anonymous namespace)::bilstm_bwd_sweep_mma<32>(SweepArgs)",
+    "void (anonymous namespace)::bilstm_bwd_sweep_fma<8>(SweepArgs)",
+])
+def test_trace_split_counts_every_backward_sweep_as_row_2(tmp_path, kernel):
+    """Row 2's sweeps by name: the float32 cluster sweep (lstm_bwd_sweep)
+    and the two bf16 sweeps count toward row 2 wherever autograd launches
+    them, so the step's split stays whole."""
+    from tools.torch_trace_split import split_train_steps
+
+    events = [
+        _x("user_annotation", "train_step.forward", 0, 100, 1),
+        _x("cpu_op", "autograd::engine::evaluate_function: BiLSTMStreamBackward", 200, 100, 2),
+        _x("cuda_runtime", "cudaLaunchKernel", 210, 1, 2, correlation=1),
+        _x("kernel", kernel, 1300, 40, 7, correlation=1),
+    ]
+    path = tmp_path / "t.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    split = split_train_steps(str(path))
+    assert split["per_step"] == [{"row 1": 0.0, "row 2": 0.04, "forward": 0.0, "loss": 0.0,
+                                  "backward": 0.0, "optimizer": 0.0}]

@@ -1,11 +1,13 @@
 """The port's full-width train step at batch 10,000 in two trees on one
 card, in turns: this tree and another commit's unpacked checkout (parent,
-this, this, parent), each in a process of its own, through each tree's
-chip_smoke.step_times of chip_smoke.full_width_step on
-examples/ont_production.ckpt.
+this, this, parent, ``--rounds`` times), each in a process of its own,
+timing each tree's chip_smoke.full_width_step on
+examples/ont_production.ckpt by CUDA events (chip_smoke.cuda_ms: the mean
+of ``--iters`` steps after a warm-up step).
 
     python3 tools/torch_step_compare.py --parent DIR [--dtypes float32,bfloat16]
-                                        [--train_pair] [--kernels]
+                                        [--train_pair] [--kernels] [--rounds 1]
+                                        [--iters 10]
 
 ``--train_pair`` times the step under ``use_pallas_train_bilstm`` (the
 resident train pair, float32 only) instead of the streaming pair.
@@ -39,9 +41,9 @@ import json, sys, torch
 import chip_smoke
 from clair_tpu_torch.models.checkpoint import load_checkpoint
 params, _ = load_checkpoint("examples/ont_production.ckpt")
-flags = json.loads(sys.argv[2])
-print(json.dumps({d: chip_smoke.step_times(
-    chip_smoke.full_width_step(params, torch.device("cuda"), d, **flags))[0]
+flags, iters = json.loads(sys.argv[2]), int(sys.argv[3])
+print(json.dumps({d: chip_smoke.cuda_ms(
+    chip_smoke.full_width_step(params, torch.device("cuda"), d, **flags), iters)
     for d in sys.argv[1].split(",")}))
 """
 
@@ -123,6 +125,9 @@ def main():
                         help="the step under use_pallas_train_bilstm (float32)")
     parser.add_argument("--kernels", action="store_true",
                         help="also time rows 1 to 6 at the kernel line's shapes")
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="turns of parent, this, this, parent")
+    parser.add_argument("--iters", type=int, default=10, help="steps timed a turn")
     args = parser.parse_args()
     dtypes, flags = args.dtypes, {}
     if args.train_pair:
@@ -132,9 +137,9 @@ def main():
     print(f"card: {card}")
     pair = "train pair" if args.train_pair else "streaming pair"
     parent = Path(args.parent).resolve()
-    for label, tree in (("parent", parent), ("this tree", ROOT), ("this tree", ROOT),
-                        ("parent", parent)):
-        ms = run(tree, STEP, dtypes, json.dumps(flags))
+    turns = (("parent", parent), ("this tree", ROOT), ("this tree", ROOT), ("parent", parent))
+    for label, tree in turns * args.rounds:
+        ms = run(tree, STEP, dtypes, json.dumps(flags), str(args.iters))
         print(f"{label}: step ({pair}) " + ", ".join(f"{d} {v:.2f} ms" for d, v in ms.items()),
               flush=True)
         if args.kernels:

@@ -8,13 +8,16 @@ lstm2: F = 256 with dx; H = 128, T = 33) and dtype, at the training batch,
 beside the CUDA-event time of the whole call.
 
     python3 tools/torch_stream_bwd_parts.py [--pair stream|train] [--batch 10000]
-                                            [--sweep_rows 0,4,8,16,32]
+                                            [--sweep_rows 0,16,32] [--f32_sweep 2:16,4:32]
 
 Prints the card's name and power limit, the kernels' compiler report, one
 line per kernel and one split line per (layer, dtype), then a JSON line of
-the splits. ``--sweep_rows`` (row 2 only) times the sweep at other rows a
-block: 0 is the kernel's own choice (both dtypes), 16 and 32 the bf16
-tensor-core sweep, 4 and 8 the float32 FMA sweep. Needs a CUDA card and
+the splits. The sweep runs at the kernel's own choice unless asked:
+``--sweep_rows`` (row 2's bf16 mode) times its tensor-core sweep at 16 or
+32 rows a block (0: the choice, both dtypes); ``--f32_sweep`` times the
+float32 reverse sweep (row 2's float32 mode, or row 6 with ``--pair
+train``) at each (cluster size, rows per tile), ``C:R``, that
+``ops/lstm_sweep.py: bwd_sweep_geometries`` lists. Needs a CUDA card and
 nvcc.
 """
 
@@ -31,18 +34,37 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
+def geometries(text: str):
+    """(cluster, rows) pairs from "C:R,C:R"."""
+    return [tuple(int(v) for v in item.split(":")) for item in text.split(",") if item]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--pair", choices=("stream", "train"), default="stream")
     parser.add_argument("--batch", type=int, default=10_000)
     parser.add_argument("--sweep_rows", default="0")
+    parser.add_argument("--f32_sweep", default="", help="C:R,... of the float32 reverse sweep")
     args = parser.parse_args()
-    if args.pair == "train" and args.sweep_rows != "0":
-        parser.error("--sweep_rows times row 2's sweep; row 6 takes the kernel's choice")
+    bf16_rows = [int(r) for r in args.sweep_rows.split(",")]
+    if args.pair == "train" and bf16_rows != [0]:
+        parser.error("--sweep_rows times row 2's bf16 sweep; row 6 takes --f32_sweep")
+    if any(r not in (0, 16, 32) for r in bf16_rows):
+        parser.error("--sweep_rows takes the bf16 sweep's rows a block, 16 or 32 (0: the "
+                     "kernel's choice); the float32 sweep takes (cluster, rows) through "
+                     "--f32_sweep, e.g. 2:16,4:32")
+    from clair_tpu_torch.ops.lstm_sweep import bwd_sweep_geometries
+
+    f32_geometries = geometries(args.f32_sweep)
+    fits = bwd_sweep_geometries(128)
+    for geometry in f32_geometries:
+        if geometry not in fits:
+            parser.error(f"--f32_sweep {geometry[0]}:{geometry[1]} does not fit the reverse "
+                         f"sweep at H = 128; these do: {fits}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     import chip_smoke
-    from clair_tpu_torch.ops import bilstm_stream, build
+    from clair_tpu_torch.ops import build
 
     card = chip_smoke.card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -54,17 +76,18 @@ def main():
         print("\n".join(line for line in report.splitlines()
                         if "Compiling" in line or "registers" in line or "spill" in line))
     dev = torch.device("cuda")
+    pair = chip_smoke.TRAIN_PAIR if args.pair == "train" else chip_smoke.STREAM_PAIR
+    row = 6 if args.pair == "train" else 2
     splits = {}
-    if args.pair == "train":
-        split = chip_smoke.backward_split(dev, args.batch, pair=chip_smoke.TRAIN_PAIR)
-        splits.update({f"{k[0]} {k[1]} row 6": v for k, v in split.items()})
-    dtypes = {0: (torch.bfloat16, torch.float32), 16: (torch.bfloat16,),
-              32: (torch.bfloat16,), 4: (torch.float32,), 8: (torch.float32,)}
-    for rows in (int(r) for r in args.sweep_rows.split(",")) if args.pair == "stream" else ():
-        bilstm_stream._SWEEP_ROWS = rows
-        print(f"sweep rows a block: {rows or 'chosen by the kernel'}")
-        split = chip_smoke.backward_split(dev, args.batch, dtypes=dtypes[rows])
-        splits.update({f"{k[0]} {k[1]} rows {rows}": v for k, v in split.items()})
+    runs = [(f"rows {rows}" if rows else "chosen", {"rows": rows},
+             (torch.bfloat16, torch.float32) if rows == 0 else (torch.bfloat16,))
+            for rows in (bf16_rows if args.pair == "stream" else [0])]
+    runs += [(f"cluster {c} rows {r}", {"cluster": c, "rows": r}, (torch.float32,))
+             for c, r in f32_geometries]
+    for label, geometry, dtypes in runs:
+        print(f"row {row}'s sweep: {label}")
+        split = chip_smoke.backward_split(dev, args.batch, dtypes=dtypes, pair=pair, **geometry)
+        splits.update({f"{k[0]} {k[1]} row {row} {label}": v for k, v in split.items()})
     print(json.dumps({"card": card, "batch": args.batch, "pair": args.pair, "split_ms": splits}))
 
 
