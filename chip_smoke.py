@@ -27,7 +27,10 @@ Phases, each printing its results and seconds:
    3d. the two-layer bilstm2 against the two plain layers, at every
        BILSTM2_BATCHES batch and every launchable sweep geometry
 4. the streaming backward kernel against its plain PyTorch version, and
-   against torch.autograd of the plain forward, on the card; two runs at
+   against torch.autograd of the plain forward, on the card, at both
+   layers' widths, the training batch, a ragged batch, T = 1 and T = 2
+   (every row at a sequence edge), F = H = 8 and F = H = 8 over more tiles
+   than multiprocessors; two runs at
    the training shape of lstm2 bit for bit; its float32 mode at every
    geometry of the reverse sweep that fits (each must launch) at a small
    batch and at H = 8;
@@ -173,6 +176,8 @@ KERNELS = {
         "name": "bilstm_stream_bwd",
         "route": "cuda",
         "source": "clair_tpu_torch/csrc/bilstm_stream_bwd.cu",
+        "sources": ["clair_tpu_torch/csrc/bilstm_stream_bwd.cu",
+                    "clair_tpu_torch/csrc/wgmma_product.cuh"],
         "replaces": "clair_tpu/ops/pallas_bilstm_stream.py:80",
     },
     "bilstm_train": {
@@ -253,8 +258,15 @@ TRAIN_ROWS, TRAIN_EPOCHS = 24_000, 2
 BITWISE_GEOMETRY = (10000, 33, 256, 128)
 # the forward at every launchable geometry: one small ragged batch
 GEOMETRY_BATCH = 100
+# the backward at both layers' widths, the training batch, a ragged batch
+# (B*T = 429, no multiple of the products' 64- and 128-row tiles), T = 1 and
+# T = 2 (every row at a sequence edge, where h_prev is the zero state),
+# F = H = 8 (every box of the bf16 products mostly past the operands' edges)
+# and H = 8 at B*T = 13,200 (more gate tiles than multiprocessors, each one
+# epilogue chunk: a block's tiles reuse its chunk buffers)
 BWD_GEOMETRIES = ((512, 33, 32, 128), (512, 33, 256, 128), (10000, 33, 256, 128),
-                  (13, 33, 256, 128), (8, 7, 16, 8), *RECIPE_GEOMETRIES)
+                  (13, 33, 256, 128), (8, 7, 16, 8), (5, 1, 32, 128), (6, 2, 256, 128),
+                  (9, 33, 8, 8), (400, 33, 8, 8), *RECIPE_GEOMETRIES)
 # the train pair at the training batch (10,000) and at 512 for both layers,
 # a ragged batch (13, no multiple of the sweeps' 8- and 16-row tiles) and a
 # tiny odd geometry;
@@ -936,6 +948,11 @@ def check_backward_kernel(dev):
                     assert err <= BWD_REL_TOL * scale, (name, err, scale)
                     max_err = max(max_err, err)
                     line.append(f"{name} {err:.2e}/{scale:.2e}")
+                elif scale == 0.0:
+                    # du at T = 1: every h_prev is the zero state, so the
+                    # gradient is exactly 0 (a cosine is undefined)
+                    assert err == 0.0, (name, err)
+                    line.append(f"{name} exactly 0")
                 else:
                     cos = cosine(g, r)
                     assert cos > BF16_COSINE and err <= BF16_REL_TOL * scale, (
@@ -1737,7 +1754,8 @@ def step_device_time(run, iters=5):
 
 # the backwards' kernels by part, from substrings of their names (the rest
 # are the wrapper's torch ops: U's transpose and the sum of the weight
-# partials); row 2's problems are GateProblem, ..., row 6's StackedGateProblem,
+# partials); row 2's problems are GateProblem, ... (its bf16 mode's
+# TmaGateProblem, ... on wgmma_product), row 6's StackedGateProblem,
 # and the float32 forwards' x.W products are row 5's StackedGateProblem and
 # row 1's StreamXWProblem
 BWD_PARTS = (("gate product", ("GateProblem", "XWProblem")), ("sweep", ("sweep",)),

@@ -47,20 +47,32 @@
 //     fixed row chunks whose float32 partials the caller adds in a fixed
 //     order: deterministic, no atomics.
 // (d) dx = [dgates_0 | dgates_1] . [W_0 ; W_1]^T, written once in x's type.
-// (a), (c) and (d) are one templated tensor-core product (mma_product, in
-// mma_product.cuh with split_pieces; it and the float32 sweep (b) are shared
-// with the resident training backward, bilstm_train.cu): 128 x 128 output
-// tiles, 8 warps of 64 x 32, depth 32 a stage, every
-// operand's bf16 pieces staged by cp.async (zero-filled past every edge)
-// into a ring of three buffers, two in flight while one is multiplied,
-// fragments by ldmatrix (.trans where the operand's rows run along the
-// reduction).
-// The operands reach it as bf16 pieces in device memory, so no block
-// converts a tile: bf16 mode's x, h_out, W and U are the tensors
-// themselves, and float32 mode's are split once by split_pieces into
-// scratch before (a).
+// (a), (c) and (d) run on one of two tensor-core products:
+// - bf16 mode, the default training path: wgmma fed by TMA
+//   (wgmma_product.cuh, the problems Tma*Problem below): a producer thread
+//   keeps a ring of 64-deep shared-memory stages loading through tensor
+//   maps of x, h_out, W, U and the dgates' two pieces (whatever a box
+//   reaches past an edge arrives as zeros), a fix-up warp zeroes the rows
+//   TMA cannot (h_prev at the sequence edge, rows past a weight-sum
+//   chunk), two consumer warpgroups run wgmma.mma_async straight from the
+//   stages (MN-major operands through the transpose bits), persistent
+//   blocks walk the output tiles in a fixed order. (a) tiles 128 rows x
+//   256 gates; (c) 128 gates x 192 of [x | h] (dgates^T . A, both pieces;
+//   db summed by two side warps from the staged pieces in float32 on the
+//   CUDA cores); (d) 128 rows x 256 features.
+// - float32 mode: one templated mma.sync product (mma_product, in
+//   mma_product.cuh with split_pieces; it and the float32 sweep (b) are
+//   shared with the resident training backward, bilstm_train.cu): 128 x
+//   128 output tiles, 8 warps of 64 x 32, depth 32 a stage, every
+//   operand's bf16 pieces staged by cp.async (zero-filled past every edge)
+//   into a ring of three buffers, fragments by ldmatrix (.trans where the
+//   operand's rows run along the reduction); the operands split once into
+//   three bf16 pieces by split_pieces into scratch before (a).
+// bf16 mode's x, h_out, W and U are the tensors themselves, so no block
+// converts a tile.
 //
-// Numerics: mma.sync m16n8k16 with bf16 operands and float32 sums, no TF32.
+// Numerics: bf16 operands and float32 sums on the tensor cores (wgmma
+// m64nNk16 in bf16 mode, mma.sync m16n8k16 in float32 mode), no TF32.
 // A bf16 operand goes as it is (bf16 mode: x, h_prev, W, U, exactly as the
 // TPU kernel's gate recompute takes them). A float32 operand v goes as bf16
 // pieces, each the rounding of what the earlier ones leave:
@@ -75,41 +87,52 @@
 //   split_bf16_product) against jax.grad of the TPU kernel: dW missed the
 //   elementwise bound rtol 3e-4, atol 3e-5 by 2.8x; three pieces stay
 //   below 0.15 of it.
-// The float32 sweep's carry takes the three-piece dgates against
-// three-piece U (six passes); the bf16 sweep's the 2-piece dgates against
-// bf16 U.
+// db is no product: each row's pieces are added, then the row is added to
+// a float32 sum on the CUDA cores, rows in order (in both modes; the
+// tensor cores' float32 accumulate rounds toward zero, and over B*T rows
+// that bias would show). The float32 sweep's carry takes the three-piece
+// dgates against three-piece U (six passes); the bf16 sweep's the 2-piece
+// dgates against bf16 U.
 //
 // What bounds each kernel (B = 10,000, T = 33, H = 128; PERF.md has the
 // measured split):
 // - (a), (c), (d): tensor-core operations: 2 * 2 * B*T * (F + H) * 4H for
 //   (a) and for (c), 2 * B*T * 8H * F for (d), times the passes; and the
 //   float32 dgates buffer (1.35 GB a layer), written by (a), read and
-//   written by (b), read by (c) and (d).
+//   written by (b), read by (c) and (d). In bf16 mode the bytes rule
+//   (about 8 GB a train step, 2.4 ms at 3.35 TB/s, against 1.09 ms of
+//   operations): on the card (a) is bound by its float32 stores and (c)
+//   and (d) by their loads (tools/torch_bwd_products.py times each with its
+//   products or its stores removed).
 // - (b): the serial chain of 33 steps (a step's loads, the elementwise
 //   backward, a barrier, the carry's dependent k16 steps; in float32 also
 //   the exchange of the partial sums), and its bytes: gates, c and dh_out
 //   read, the dgates' pieces written.
 // Measured split, ms at B = 10,000 on an H100 80GB HBM3 at 700 W
 // (tools/torch_stream_bwd_parts.py, torch.profiler device time):
-//   the earlier design (gates recomputed on the serial chain, FMA products):
+//   the first design (gates recomputed on the serial chain, FMA products):
 //     bf16 lstm1 sweep 12.633, sums 7.491; lstm2 sweep 20.271, sums 14.238,
 //     dx 5.904 (60.77 both layers); f32 lstm1 sweep 11.434, sums 4.915;
 //     lstm2 sweep 18.951, sums 9.186, dx 6.463 (51.26 both layers).
-//   this design: bf16 lstm1 gates 0.901, sweep 1.845, sums 1.331;
-//     lstm2 gates 1.509, sweep 1.859, sums 1.866, dx 1.284 (10.78 both
-//     layers); f32 lstm1 gates 2.264, sweep 5.355, sums 3.182, pieces
-//     0.399; lstm2 gates 4.669, sweep 5.381, sums 4.502, dx 3.095, pieces
-//     0.707 (29.81 both layers), the sweep then float32 FMA with U^T
-//     streamed from L2 (4 or 8 rows a block).
-//   the float32 cluster sweep: PERF.md §6 (chip_smoke.py phase 9a).
-// Left for later: wgmma and TMA in the products, and one read of dgates
-// feeding both dx and the weight sums.
+//   products on mma.sync in both modes: bf16 lstm1 gates 0.906, sweep
+//     1.857, sums 1.341; lstm2 gates 1.512, sweep 1.854, sums 1.846, dx
+//     1.294 (10.72 both layers).
+//   this design: bf16 lstm1 gates 0.607, sweep 1.844, sums 0.517; lstm2
+//     gates 0.744, sweep 1.848, sums 0.927, dx 0.585 (7.20 both layers);
+//     f32 lstm1 gates 2.243, sweep 3.903, sums 3.146, pieces 0.397; lstm2
+//     gates 4.623, sweep 3.912, sums 4.467, dx 3.067, pieces 0.707 (26.9
+//     both layers).
+// Left for later: one read of dgates feeding both dx and the weight sums;
+// the bf16 loads of (c) and (d) (each row's 128-byte segments 2 KB apart;
+// a cluster of two CTAs sharing one operand by TMA multicast did not speed
+// them); the float32 products on wgmma_product (three pieces an operand).
 
 #include "lstm_bwd_sweep.cuh"
+#include "wgmma_product.cuh"
 
 namespace {
 
-// ---- (a), (c), (d): the problems of the shared product (mma_product.cuh) ---
+// ---- float32 mode's (a), (c), (d): problems of the mma.sync product (mma_product.cuh)
 
 // A problem supplies its operands' layouts and pieces, the 16-byte chunk of
 // piece p of each operand at a (tile row, tile column) in global indices
@@ -133,10 +156,8 @@ struct XH {  // [x | h_prev] of direction dir: row m of B*T, column k of F + H
 };
 
 // (a) gates[dir][m][g] = [x | h_prev][m] . [W ; U][:, g] + b[g]; grid.z = dir.
-template <int PX>
 struct GateProblem {
     static constexpr bool kAK = true, kBKMajor = false;  // A [m][k]; B [k][g]
-    static constexpr int kPA = PX, kPB = PX;
     static constexpr bool kDb = false;
     XH xh;
     Pieces w, u;
@@ -167,10 +188,8 @@ struct GateProblem {
 // (c) partial[split][dir][a][g] = sum over the chunk's rows m of
 // A[m][a] * dgates[dir][m][g], and row F + H the chunk's sum of dgates;
 // grid.z = split * 2 + dir.
-template <int PX, int PD>
 struct WeightSumProblem {
     static constexpr bool kAK = false, kBKMajor = false;  // A [m][a]; B [m][g]
-    static constexpr int kPA = PX, kPB = PD;
     static constexpr bool kDb = true;
     XH xh;
     Pieces dg;
@@ -200,13 +219,11 @@ struct WeightSumProblem {
 
 // (d) dx[m][f] = sum over dir, g of dgates[dir][m][g] * W[dir][f][g]; the
 // reduction runs over both directions' 4H gates; grid.z = 1.
-template <int PX, int PD, typename T>
 struct DxProblem {
     static constexpr bool kAK = true, kBKMajor = true;  // A [m][kk]; B [f][kk]
-    static constexpr int kPA = PD, kPB = PX;
     static constexpr bool kDb = false;
     Pieces dg, w;
-    T* dx;
+    float* dx;
     int rows, feat, gates;
     __device__ const void* base() const { return dg.base; }
     __device__ int k_begin() const { return 0; }
@@ -224,19 +241,436 @@ struct DxProblem {
         return w.at(d * feat + f, kk - d * gates, ps);
     }
     __device__ void store(int m, int f, float v0, float v1) const {
-        T* o = dx + static_cast<size_t>(m) * feat + f;
-        o[0] = from_float<T>(v0);
-        o[1] = from_float<T>(v1);
+        float* o = dx + static_cast<size_t>(m) * feat + f;
+        o[0] = v0;
+        o[1] = v1;
     }
     __device__ void store_db(int, float) const {}
 };
+
+// ---- bf16 mode's (a), (c), (d): wgmma fed by TMA (wgmma_product.cuh) --------
+//
+// The same three products on bf16 operands, each a single piece except the
+// dgates' two (hi and lo, interleaved in each row where the sweep wrote them
+// over the gates): the tensor maps read x (B*T, F), h_out as (B*T, 2, H)
+// (a direction's H columns; a box reaching past H loads zeros), W and U as
+// (2, K, 4H) and the dgates as (2, B*T, 2, 4H) (direction, row, piece,
+// gate). Boxes are 64 bf16 wide; widths below 64 (F = 32 at lstm1, H = 8)
+// and ragged row counts arrive zero-filled and are never stored.
+// h_prev is h_out one row up (direction 0) or down (direction 1) of the
+// flat B*T rows; a box reads it so, and the fix-up warp zeroes the rows at
+// the sequence edge (t = 0, or t = T-1), which belong to the neighbouring
+// sequence.
+
+// Whether row m = b*T + t of direction dir has no h_prev (the zero state).
+__device__ __forceinline__ bool seq_edge(int m, int t_len, int dir) {
+    return m % t_len == (dir == 0 ? 0 : t_len - 1);
+}
+
+// (a) gates[dir][m][g] = [x | h_prev][m] . [W ; U][:, g] + b[g]: a tile is
+// 128 rows x 256 gates of one direction; its reduction x's F columns in
+// boxes of 64, then h_prev's H. A [m][k] (K-major), B [k][g] (MN-major).
+struct TmaGateProblem {
+    static constexpr int kN = 256;
+    static constexpr int kStages = 4;
+    static constexpr int kStageBytes = kWgBM * kRowBytes + (kN / 64) * kBoxBytes;  // 48 KB
+    // the epilogue's chunks: 64 rows x 32 gates of float32 (128-byte rows),
+    // two buffers a consumer warpgroup
+    static constexpr int kChunk = 32, kChunkBytes = kWgRows * kRowBytes;
+    static constexpr int kExtraBytes = 2 * 2 * kChunkBytes;
+    static constexpr bool kFix = true;
+    static constexpr int kSideWarps = 0;
+    using Acc = WgmmaAcc<kN>;
+    CUtensorMap x_map;  // x (B*T, F), box 64 x 128 rows
+    CUtensorMap h_map;  // h_out (B*T, 2, H), box 64 x 1 x 128 rows
+    CUtensorMap w_map;  // W (2, F, 4H), box 64 gates x 64 x 1
+    CUtensorMap u_map;  // U (2, H, 4H), box 64 gates x 64 x 1
+    CUtensorMap out_map;  // gates (2, B*T, 4H) float32, box 32 gates x 64 rows x 1
+    const float* b;
+    int rows, t_len, hidden, m_tiles, n_tiles, x_steps, h_steps;
+
+    __host__ __device__ int tiles() const { return 2 * m_tiles * n_tiles; }
+    // tile = (dir * m_tiles + m tile) * n_tiles + n tile
+    __device__ void at(int tile, int& dir, int& m0, int& n0) const {
+        n0 = (tile % n_tiles) * kN;
+        m0 = ((tile / n_tiles) % m_tiles) * kWgBM;
+        dir = tile / (n_tiles * m_tiles);
+    }
+    __device__ int k_steps(int) const { return x_steps + h_steps; }
+    __device__ unsigned stage_bytes(int) const { return kStageBytes; }
+    __device__ void load(int tile, int k, unsigned char* s, uint64_t* bar) const {
+        int dir, m0, n0;
+        at(tile, dir, m0, n0);
+        unsigned char* b_s = s + kWgBM * kRowBytes;
+        const bool x_step = k < x_steps;
+        const int k0 = (x_step ? k : k - x_steps) * 64;
+        if (x_step) tma_load(s, &x_map, bar, k0, m0);
+        else tma_load(s, &h_map, bar, k0, dir, m0 + (dir == 0 ? -1 : 1));
+#pragma unroll
+        for (int j = 0; j < kN / 64; ++j)
+            tma_load(b_s + j * kBoxBytes, x_step ? &w_map : &u_map, bar, n0 + 64 * j, k0, dir);
+    }
+    __device__ void fix(int tile, int k, unsigned char* s, int lane) const {
+        if (k < x_steps) return;
+        int dir, m0, n0;
+        at(tile, dir, m0, n0);
+        for (int r = lane; r < kWgBM; r += 32)
+            if (m0 + r < rows && seq_edge(m0 + r, t_len, dir)) zero_row(s, r);
+    }
+    __device__ void mma(Acc& acc, const unsigned char* stage, int half, int) const {
+        const uint32_t s = smem_u32(stage);
+        const uint32_t a = s + half * kWgRows * kRowBytes, bt = s + kWgBM * kRowBytes;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_bf16<kN, 0, 1>(acc.d, k_major_at(a, kk), mn_major_at(bt, kk));
+    }
+    // The warpgroup's 64 x 256 gates plus the bias, 32 gates at a time: into
+    // a chunk buffer in the 128-byte swizzle, then one thread's TMA store,
+    // which reads the buffer while the next chunk fills the other one. A
+    // tile's chunk 0 waits for every earlier store: the block's previous
+    // tile may have ended on either buffer (an odd count of chunks where
+    // 4H mod 256 is an odd multiple of 32, as at H = 8).
+    __device__ void store(int tile, int half, const Acc& acc, unsigned char* extra) const {
+        int dir, m0, n0;
+        at(tile, dir, m0, n0);
+        const int t = threadIdx.x & 127, l = t & 31, gates = 4 * hidden;
+        const int r0 = (t >> 5) * 16 + (l >> 2);  // this thread's rows r0 and r0 + 8
+        const float* bd = b + dir * gates + n0;
+#pragma unroll
+        for (int c = 0; c < kN / kChunk; ++c) {
+            if (n0 + c * kChunk >= gates) break;  // 4H is a multiple of 32: chunks are whole
+            unsigned char* buf = extra + (half * 2 + (c & 1)) * kChunkBytes;
+            if (t == 0) {  // the store that last read this buffer is done
+                if (c == 0) bulk_wait_read<0>();
+                else bulk_wait_read<1>();
+            }
+            named_barrier(1 + half, 128);
+#pragma unroll
+            for (int jj = 0; jj < kChunk / 8; ++jj) {
+                const int j = c * (kChunk / 8) + jj, col = 8 * jj + 2 * (l & 3);
+                const float2 bias = *reinterpret_cast<const float2*>(bd + c * kChunk + col);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = r0 + 8 * h;
+                    *reinterpret_cast<float2*>(buf + r * kRowBytes +
+                                               (((col >> 2) ^ (r & 7)) << 4) + (col & 3) * 4) =
+                        make_float2(acc.d[4 * j + 2 * h] + bias.x, acc.d[4 * j + 2 * h + 1] + bias.y);
+                }
+            }
+            fence_proxy_async();
+            named_barrier(1 + half, 128);
+            if (t == 0) {
+                tma_store(buf, &out_map, n0 + c * kChunk, m0 + half * kWgRows, dir);
+                bulk_commit();
+            }
+        }
+    }
+};
+
+// (c) partial[split][dir][a][g] = sum over the chunk's rows m of
+// A[m][a] * dgates[dir][m][g] (A = [x | h_prev]), and row F + H the chunk's
+// sum of dgates. Computed transposed, as dgates^T . A: a tile is 128 gates
+// x three boxes of A's columns (x's boxes of 64, then h_prev's), both
+// operands MN-major (rows along the reduction), both dgates pieces against
+// the same A. db is summed from the staged dgates by two side warps on the
+// CUDA cores beside the consumers' wgmma: side warp w sums the tile's gates
+// 64w .. 64w + 63 in the tiles at n tile w % n_tiles (so that the n tiles,
+// which read the same dgates side by side, carry the same work); a lane
+// takes two gates, and for each row in order adds the row's two pieces,
+// then the row to its float32 sum (the float32 mode's order,
+// mma_product.cuh). The fix-up warp zeroes h_prev's edge rows and, in a
+// chunk's last stage, the dgates rows past the chunk (the next chunk's).
+struct TmaWeightSumProblem {
+    static constexpr int kBoxes = 3;
+    static constexpr int kN = 64 * kBoxes;
+    static constexpr int kABytes = 2 * 2 * kBoxBytes;  // 2 pieces x 128 gates
+    static constexpr int kStages = 4;
+    static constexpr int kStageBytes = kABytes + kBoxes * kBoxBytes;  // 56 KB
+    static constexpr int kExtraBytes = 0;
+    static constexpr bool kFix = true;
+    static constexpr int kSideWarps = 2;  // db of the tile's gates 0-63 and 64-127
+    using Acc = WgmmaAcc<kN>;
+    struct Side {
+        float db[2];  // the sums of this lane's two gates
+    };
+    CUtensorMap dg_map;  // dgates (2, B*T, 2, 4H), box 64 gates x 1 x 64 rows x 1
+    CUtensorMap x_map;   // x (B*T, F), box 64 x 64 rows
+    CUtensorMap h_map;   // h_out (B*T, 2, H), box 64 x 1 x 64 rows
+    float* partial;
+    int rows, t_len, feat, hidden, splits, rows_per_split, m_tiles, n_tiles, x_boxes, h_boxes;
+
+    __host__ __device__ int tiles() const { return splits * 2 * m_tiles * n_tiles; }
+    // tile = (slab * m_tiles + m tile) * n_tiles + n tile, slab = split * 2 + dir
+    __device__ void at(int tile, int& slab, int& g0, int& nt) const {
+        nt = tile % n_tiles;
+        g0 = ((tile / n_tiles) % m_tiles) * kWgBM;
+        slab = tile / (n_tiles * m_tiles);
+    }
+    __device__ int k_begin(int slab) const { return (slab >> 1) * rows_per_split; }
+    __device__ int k_end(int slab) const { return min(rows, k_begin(slab) + rows_per_split); }
+    __device__ int k_steps(int tile) const {
+        int slab, g0, nt;
+        at(tile, slab, g0, nt);
+        return (k_end(slab) - k_begin(slab) + kWgBK - 1) / kWgBK;
+    }
+    __device__ int boxes(int nt) const { return min(kBoxes, x_boxes + h_boxes - nt * kBoxes); }
+    __device__ unsigned stage_bytes(int tile) const {
+        return kABytes + boxes(tile % n_tiles) * kBoxBytes;
+    }
+    __device__ void load(int tile, int k, unsigned char* s, uint64_t* bar) const {
+        int slab, g0, nt;
+        at(tile, slab, g0, nt);
+        const int dir = slab & 1, k0 = k_begin(slab) + k * kWgBK;
+#pragma unroll
+        for (int piece = 0; piece < 2; ++piece)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                tma_load(s + (piece * 2 + h) * kBoxBytes, &dg_map, bar, g0 + h * kWgRows, piece, k0,
+                         dir);
+        unsigned char* b_s = s + kABytes;
+        for (int j = 0; j < boxes(nt); ++j) {
+            const int box = nt * kBoxes + j;
+            if (box < x_boxes) tma_load(b_s + j * kBoxBytes, &x_map, bar, box * 64, k0);
+            else tma_load(b_s + j * kBoxBytes, &h_map, bar, (box - x_boxes) * 64, dir,
+                          k0 + (dir == 0 ? -1 : 1));
+        }
+    }
+    __device__ void fix(int tile, int k, unsigned char* s, int lane) const {
+        int slab, g0, nt;
+        at(tile, slab, g0, nt);
+        const int dir = slab & 1, k0 = k_begin(slab) + k * kWgBK, end = k_end(slab);
+        const int first_h = max(0, x_boxes - nt * kBoxes), n_boxes = boxes(nt);
+        for (int r = lane; r < kWgBK; r += 32) {
+            const int m = k0 + r;
+            if (m >= end) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) zero_row(s + q * kBoxBytes, r);
+            } else if (first_h < n_boxes && seq_edge(m, t_len, dir)) {
+                for (int j = first_h; j < n_boxes; ++j) zero_row(s + kABytes + j * kBoxBytes, r);
+            }
+        }
+    }
+    __device__ void mma(Acc& acc, const unsigned char* stage, int half, int) const {
+        const uint32_t s = smem_u32(stage), bt = s + kABytes;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int piece = 0; piece < 2; ++piece)
+                wgmma_bf16<kN, 1, 1>(acc.d, mn_major_at(s + (piece * 2 + half) * kBoxBytes, kk),
+                                     mn_major_at(bt, kk));
+    }
+    // db of gates 2 lane, 2 lane + 1 of the tile's half `warp`: the stage's
+    // 64 rows in order (rows past the chunk or the tensor are zeros), eight
+    // rows' loads in flight before their sums; a row's 128 bytes hold 64
+    // gates as 16-byte chunks permuted by the swizzle (row r's by r & 7)
+    __device__ void side(Side& st, int tile, const unsigned char* stage, int warp, int lane) const {
+        if (tile % n_tiles != warp % n_tiles) return;
+        const uint32_t p0 = smem_u32(stage) + warp * kBoxBytes + (lane & 3) * 4;
+        const uint32_t p1 = p0 + 2 * kBoxBytes;
+#pragma unroll 1
+        for (int r0 = 0; r0 < kWgBK; r0 += 8) {
+            uint32_t v0[8], v1[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const uint32_t at = (r0 + i) * kRowBytes + (((lane >> 2) ^ i) << 4);
+                v0[i] = ld_shared_b32(p0 + at);
+                v1[i] = ld_shared_b32(p1 + at);
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const float2 a = bf16x2_float2(v0[i]), b = bf16x2_float2(v1[i]);
+                st.db[0] += a.x + b.x;
+                st.db[1] += a.y + b.y;
+            }
+        }
+    }
+    __device__ void side_store(const Side& st, int tile, int warp, int lane) const {
+        int slab, g0, nt;
+        at(tile, slab, g0, nt);
+        const int gates = 4 * hidden, g = g0 + warp * kWgRows + 2 * lane;
+        if (nt != warp % n_tiles || g >= gates) return;  // 4H is a multiple of 32: g + 1 too
+        float* out = partial + (static_cast<size_t>(slab) * (feat + hidden + 1) + feat + hidden) * gates;
+        *reinterpret_cast<float2*>(out + g) = make_float2(st.db[0], st.db[1]);
+    }
+    __device__ void store(int tile, int half, const Acc& acc, unsigned char*) const {
+        int slab, g0, nt;
+        at(tile, slab, g0, nt);
+        const int l = threadIdx.x & 31, gates = 4 * hidden;
+        const int g = g0 + half * kWgRows + ((threadIdx.x >> 5) & 3) * 16 + (l >> 2);
+        float* out = partial + static_cast<size_t>(slab) * (feat + hidden + 1) * gates;
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+            const int box = nt * kBoxes + j / 8, c = (j % 8) * 8 + 2 * (l & 3);
+            int a;  // A's column of this fragment column (and the next)
+            if (box < x_boxes) a = box * 64 + c < feat ? box * 64 + c : -1;
+            else a = (box - x_boxes) * 64 + c < hidden ? feat + (box - x_boxes) * 64 + c : -1;
+            if (box >= x_boxes + h_boxes || a < 0) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                if (g + 8 * h >= gates) continue;
+                out[static_cast<size_t>(a) * gates + g + 8 * h] = acc.d[4 * j + 2 * h];
+                out[static_cast<size_t>(a + 1) * gates + g + 8 * h] = acc.d[4 * j + 2 * h + 1];
+            }
+        }
+    }
+};
+
+// (d) dx[m][f] = sum over dir, g of dgates[dir][m][g] * W[dir][f][g], both
+// pieces: a tile is 128 rows x 256 features; the reduction runs over both
+// directions' 4H gates in boxes of 64. A [m][g] and B [f][g], both K-major.
+struct TmaDxProblem {
+    static constexpr int kN = 256;
+    static constexpr int kABytes = 2 * kWgBM * kRowBytes;  // 2 pieces x 128 rows
+    static constexpr int kStages = 3;
+    static constexpr int kStageBytes = kABytes + kN * kRowBytes;  // 64 KB
+    static constexpr int kExtraBytes = 0;
+    static constexpr bool kFix = false;
+    static constexpr int kSideWarps = 0;
+    using Acc = WgmmaAcc<kN>;
+    CUtensorMap dg_map;  // dgates (2, B*T, 2, 4H), box 64 gates x 1 x 128 rows x 1
+    CUtensorMap w_map;   // W (2, F, 4H), box 64 gates x 256 x 1
+    bf16* dx;
+    int rows, feat, m_tiles, n_tiles, g_steps;
+
+    __host__ __device__ int tiles() const { return m_tiles * n_tiles; }
+    __device__ int k_steps(int) const { return 2 * g_steps; }
+    __device__ unsigned stage_bytes(int) const { return kStageBytes; }
+    __device__ void load(int tile, int k, unsigned char* s, uint64_t* bar) const {
+        const int m0 = (tile / n_tiles) * kWgBM, n0 = (tile % n_tiles) * kN;
+        const int dir = k / g_steps, g0 = (k % g_steps) * 64;
+#pragma unroll
+        for (int piece = 0; piece < 2; ++piece)
+            tma_load(s + piece * kWgBM * kRowBytes, &dg_map, bar, g0, piece, m0, dir);
+        tma_load(s + kABytes, &w_map, bar, g0, n0, dir);
+    }
+    __device__ void fix(int, int, unsigned char*, int) const {}
+    __device__ void mma(Acc& acc, const unsigned char* stage, int half, int) const {
+        const uint32_t s = smem_u32(stage);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int piece = 0; piece < 2; ++piece)
+                wgmma_bf16<kN, 0, 0>(acc.d,
+                                 k_major_at(s + (piece * kWgBM + half * kWgRows) * kRowBytes, kk),
+                                 k_major_at(s + kABytes, kk));
+    }
+    __device__ void store(int tile, int half, const Acc& acc, unsigned char*) const {
+        const int m0 = (tile / n_tiles) * kWgBM, n0 = (tile % n_tiles) * kN;
+        const int l = threadIdx.x & 31;
+        const int row = m0 + half * kWgRows + ((threadIdx.x >> 5) & 3) * 16 + (l >> 2);
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+            const int f = n0 + 8 * j + 2 * (l & 3);
+            if (f >= feat) continue;  // F is a multiple of 8: f + 1 is real too
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                if (row + 8 * h < rows)
+                    *reinterpret_cast<__nv_bfloat162*>(dx + static_cast<size_t>(row + 8 * h) * feat + f) =
+                        __floats2bfloat162_rn(acc.d[4 * j + 2 * h], acc.d[4 * j + 2 * h + 1]);
+        }
+    }
+};
+
+// The tensor maps of bf16 mode's operands, boxes `box_rows` rows deep.
+cudaError_t x_map(CUtensorMap* map, const void* x, int rows, int feat, int box_rows) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(feat), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {2ull * feat};
+    const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+    return bf16_map(map, x, dims, strides, box);
+}
+cudaError_t h_map(CUtensorMap* map, const void* h_out, int rows, int hidden, int box_rows) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hidden), 2, static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[2] = {2ull * hidden, 4ull * hidden};
+    const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(box_rows)};
+    return bf16_map(map, h_out, dims, strides, box);
+}
+// W or U, (2, k_rows, 4H)
+cudaError_t weight_map(CUtensorMap* map, const void* w, int k_rows, int gates, int box_rows) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(gates), static_cast<cuuint64_t>(k_rows), 2};
+    const cuuint64_t strides[2] = {2ull * gates, 2ull * gates * k_rows};
+    const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+    return bf16_map(map, w, dims, strides, box);
+}
+// the dgates' two pieces in place of the (2, B*T, 4H) float32 gates
+cudaError_t dgates_map(CUtensorMap* map, const void* dg, int rows, int gates, int box_rows) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(gates), 2, static_cast<cuuint64_t>(rows), 2};
+    const cuuint64_t strides[3] = {2ull * gates, 4ull * gates, 4ull * gates * rows};
+    const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+    return bf16_map(map, dg, dims, strides, box);
+}
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+cudaError_t tma_gates(const void* x, const void* w, const void* u, const void* b,
+                      const void* h_out, float* gates_out, int rows, int t_len, int feat,
+                      int hidden, cudaStream_t stream) {
+    TmaGateProblem p{};
+    const int gates = 4 * hidden;
+    cudaError_t err = x_map(&p.x_map, x, rows, feat, kWgBM);
+    if (err == cudaSuccess) err = h_map(&p.h_map, h_out, rows, hidden, kWgBM);
+    if (err == cudaSuccess) err = weight_map(&p.w_map, w, feat, gates, 64);
+    if (err == cudaSuccess) err = weight_map(&p.u_map, u, hidden, gates, 64);
+    if (err == cudaSuccess) {
+        const cuuint64_t dims[3] = {static_cast<cuuint64_t>(gates), static_cast<cuuint64_t>(rows), 2};
+        const cuuint64_t strides[2] = {4ull * gates, 4ull * gates * rows};
+        const cuuint32_t box[3] = {TmaGateProblem::kChunk, kWgRows, 1};
+        err = tensor_map(&p.out_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, gates_out, dims, strides, box);
+    }
+    if (err != cudaSuccess) return err;
+    p.b = static_cast<const float*>(b);
+    p.rows = rows;
+    p.t_len = t_len;
+    p.hidden = hidden;
+    p.m_tiles = ceil_div(rows, kWgBM);
+    p.n_tiles = ceil_div(gates, TmaGateProblem::kN);
+    p.x_steps = ceil_div(feat, 64);
+    p.h_steps = ceil_div(hidden, 64);
+    return launch_wgmma(p, p.tiles(), stream);
+}
+
+cudaError_t tma_weight_sums(const void* x, const void* h_out, const void* dgates, float* partial,
+                            int rows, int t_len, int feat, int hidden, int splits,
+                            int rows_per_split, cudaStream_t stream) {
+    TmaWeightSumProblem p{};
+    const int gates = 4 * hidden;
+    cudaError_t err = dgates_map(&p.dg_map, dgates, rows, gates, kWgBK);
+    if (err == cudaSuccess) err = x_map(&p.x_map, x, rows, feat, kWgBK);
+    if (err == cudaSuccess) err = h_map(&p.h_map, h_out, rows, hidden, kWgBK);
+    if (err != cudaSuccess) return err;
+    p.partial = partial;
+    p.rows = rows;
+    p.t_len = t_len;
+    p.feat = feat;
+    p.hidden = hidden;
+    p.splits = splits;
+    p.rows_per_split = rows_per_split;
+    p.m_tiles = ceil_div(gates, kWgBM);
+    p.x_boxes = ceil_div(feat, 64);
+    p.h_boxes = ceil_div(hidden, 64);
+    p.n_tiles = ceil_div(p.x_boxes + p.h_boxes, TmaWeightSumProblem::kBoxes);
+    return launch_wgmma(p, p.tiles(), stream);
+}
+
+cudaError_t tma_dx(const void* dgates, const void* w, void* dx, int rows, int feat, int hidden,
+                   cudaStream_t stream) {
+    TmaDxProblem p{};
+    const int gates = 4 * hidden;
+    cudaError_t err = dgates_map(&p.dg_map, dgates, rows, gates, kWgBM);
+    if (err == cudaSuccess) err = weight_map(&p.w_map, w, feat, gates, TmaDxProblem::kN);
+    if (err != cudaSuccess) return err;
+    p.dx = static_cast<bf16*>(dx);
+    p.rows = rows;
+    p.feat = feat;
+    p.m_tiles = ceil_div(rows, kWgBM);
+    p.n_tiles = ceil_div(feat, TmaDxProblem::kN);
+    p.g_steps = ceil_div(gates, 64);
+    return launch_wgmma(p, p.tiles(), stream);
+}
 
 // ---- (b): the reverse sweep ------------------------------------------------
 
 struct SweepArgs {
     const float* gates;   // (2, B*T, 4H) float32 pre-activations
-    bf16* pieces;         // dgates out: rows (dir, m) of n_pieces x 4H bf16
-    int n_pieces;
+    bf16* pieces;         // dgates out: rows (dir, m) of pieces x 4H bf16 (bf16: 2, float32: 3)
     const float* c_out;   // (B, T, 2H) float32
     const void* dh_out;   // (B, T, 2H) in T
     const void* u;        // (2, H, 4H) in T
@@ -473,15 +907,12 @@ __device__ __forceinline__ void load_cell(const SweepArgs& s, int dir, int row, 
 __device__ __forceinline__ void store_pieces(const SweepArgs& s, int dir, int row, int t, int j,
                                              const float (&dg)[4]) {
     const int gates = 4 * s.hidden;
-    bf16* out = s.pieces + s.row(dir, row, t) * s.n_pieces * gates + j;
+    bf16* out = s.pieces + s.row(dir, row, t) * 2 * gates + j;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-        float rest = dg[g];
-        for (int p = 0; p < s.n_pieces; ++p) {
-            const bf16 piece = __float2bfloat16_rn(rest);
-            out[p * gates + g * s.hidden] = piece;
-            rest -= __bfloat162float(piece);
-        }
+        const bf16 hi = __float2bfloat16_rn(dg[g]);
+        out[g * s.hidden] = hi;
+        out[gates + g * s.hidden] = __float2bfloat16_rn(dg[g] - __bfloat162float(hi));
     }
 }
 
@@ -629,64 +1060,70 @@ size_t scratch_elems(size_t rows, int feat, int hidden) {
                 2 * rows * gates);
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* u, const void* ut, const void* b,
-                   const void* h_out, const void* c_out, const void* dh_out, void* dgates,
-                   void* partial, void* dx, void* scratch, long long scratch_bytes, int batch,
-                   int t_len, int feat, int hidden, int splits, int rows_per_split,
-                   int sweep_cluster, int sweep_rows, cudaStream_t stream) {
-    constexpr bool f32 = sizeof(T) == 4;
-    constexpr int PX = f32 ? 3 : 1, PD = f32 ? 3 : 2;
+// bf16: the products on wgmma fed by TMA, the dgates' two pieces in place
+// of the gates.
+cudaError_t launch_bf16(const void* x, const void* w, const void* u, const void* ut, const void* b,
+                        const void* h_out, const void* c_out, const void* dh_out, void* dgates,
+                        void* partial, void* dx, int batch, int t_len, int feat, int hidden,
+                        int splits, int rows_per_split, int sweep_rows, cudaStream_t stream) {
     const int rows = batch * t_len;
-    const int gates = 4 * hidden;
-    // float32: the sweep's geometry first, so one that does not fit launches
-    // nothing
-    int per_dir = 0;
-    if constexpr (f32) {
-        const cudaError_t planned =
-            plan_bwd_sweep<SweepArgs>(batch, hidden, sweep_cluster, sweep_rows, per_dir);
-        if (planned != cudaSuccess) return planned;
-    }
     float* gate_buf = static_cast<float*>(dgates);
-    Pieces xp{static_cast<const bf16*>(x), feat, 1}, hp{static_cast<const bf16*>(h_out), 2 * hidden, 1};
-    Pieces wp{static_cast<const bf16*>(w), gates, 1}, up{static_cast<const bf16*>(u), gates, 1};
-    // bf16: the dgates' two pieces in place of the gates
-    Pieces dgp{static_cast<const bf16*>(dgates), gates, 2};
-    cudaError_t err = cudaSuccess;
-    if constexpr (f32) {
-        if (scratch == nullptr ||
-            static_cast<size_t>(scratch_bytes) < sizeof(bf16) * scratch_elems(rows, feat, hidden))
-            return cudaErrorInvalidValue;
-        bf16* at = static_cast<bf16*>(scratch);
-        auto carve = [&](const void* src, size_t n_rows, int cols, Pieces& out) {
-            out = Pieces{at, cols, 3};
-            if (src != nullptr && err == cudaSuccess) err = launch_split(src, at, n_rows, cols, stream);
-            at += 3 * n_rows * cols;
-        };
-        carve(x, rows, feat, xp);
-        carve(h_out, rows, 2 * hidden, hp);
-        carve(w, 2 * static_cast<size_t>(feat), gates, wp);
-        carve(u, 2 * static_cast<size_t>(hidden), gates, up);
-        carve(nullptr, 2 * static_cast<size_t>(rows), gates, dgp);  // written by the sweep
-        if (err != cudaSuccess) return err;
-    }
+    cudaError_t err = tma_gates(x, w, u, b, h_out, gate_buf, rows, t_len, feat, hidden, stream);
+    if (err != cudaSuccess) return err;
+    const SweepArgs s{gate_buf, static_cast<bf16*>(dgates), static_cast<const float*>(c_out),
+                      dh_out, u, ut, batch, t_len, hidden};
+    err = launch_bf16_sweep(s, sweep_rows, stream);
+    if (err != cudaSuccess) return err;
+    err = tma_weight_sums(x, h_out, dgates, static_cast<float*>(partial), rows, t_len, feat, hidden,
+                          splits, rows_per_split, stream);
+    if (err != cudaSuccess || dx == nullptr) return err;
+    return tma_dx(dgates, w, dx, rows, feat, hidden, stream);
+}
+
+// float32: three bf16 pieces of every operand on the mma.sync product; the
+// sweep's geometry first, so one that does not fit launches nothing.
+cudaError_t launch_f32(const void* x, const void* w, const void* u, const void* b,
+                       const void* h_out, const void* c_out, const void* dh_out, void* dgates,
+                       void* partial, void* dx, void* scratch, long long scratch_bytes, int batch,
+                       int t_len, int feat, int hidden, int splits, int rows_per_split,
+                       int sweep_cluster, int sweep_rows, cudaStream_t stream) {
+    const int rows = batch * t_len, gates = 4 * hidden;
+    float* gate_buf = static_cast<float*>(dgates);
+    int per_dir = 0;
+    cudaError_t err = plan_bwd_sweep<SweepArgs>(batch, hidden, sweep_cluster, sweep_rows, per_dir);
+    if (err != cudaSuccess) return err;
+    if (scratch == nullptr ||
+        static_cast<size_t>(scratch_bytes) < sizeof(bf16) * scratch_elems(rows, feat, hidden))
+        return cudaErrorInvalidValue;
+    Pieces xp, hp, wp, up, dgp;
+    bf16* at = static_cast<bf16*>(scratch);
+    auto carve = [&](const void* src, size_t n_rows, int cols, Pieces& out) {
+        out = Pieces{at, cols};
+        if (src != nullptr && err == cudaSuccess) err = launch_split(src, at, n_rows, cols, stream);
+        at += kPieces * n_rows * cols;
+    };
+    carve(x, rows, feat, xp);
+    carve(h_out, rows, 2 * hidden, hp);
+    carve(w, 2 * static_cast<size_t>(feat), gates, wp);
+    carve(u, 2 * static_cast<size_t>(hidden), gates, up);
+    carve(nullptr, 2 * static_cast<size_t>(rows), gates, dgp);  // written by the sweep
+    if (err != cudaSuccess) return err;
     const XH xh{xp, hp, rows, t_len, feat, hidden, 1.0f / t_len};
 
-    GateProblem<PX> gp{xh, wp, up, static_cast<const float*>(b), gate_buf, gates};
+    GateProblem gp{xh, wp, up, static_cast<const float*>(b), gate_buf, gates};
     err = launch_product(gp, gates, rows, 2, stream);
     if (err != cudaSuccess) return err;
 
-    const SweepArgs s{gate_buf, const_cast<bf16*>(dgp.base), PD,
-                      static_cast<const float*>(c_out), dh_out, u, ut, batch, t_len, hidden};
-    err = f32 ? launch_bwd_sweep(s, sweep_cluster, sweep_rows, per_dir, stream)
-              : launch_bf16_sweep(s, sweep_rows, stream);
+    const SweepArgs s{gate_buf, const_cast<bf16*>(dgp.base), static_cast<const float*>(c_out),
+                      dh_out, u, nullptr, batch, t_len, hidden};
+    err = launch_bwd_sweep(s, sweep_cluster, sweep_rows, per_dir, stream);
     if (err != cudaSuccess) return err;
 
-    WeightSumProblem<PX, PD> wsp{xh, dgp, static_cast<float*>(partial), gates, rows_per_split};
+    WeightSumProblem wsp{xh, dgp, static_cast<float*>(partial), gates, rows_per_split};
     err = launch_product(wsp, gates, feat + hidden, splits * 2, stream);
     if (err != cudaSuccess || dx == nullptr) return err;
 
-    DxProblem<PX, PD, T> dp{dgp, wp, static_cast<T*>(dx), rows, feat, gates};
+    DxProblem dp{dgp, wp, static_cast<float*>(dx), rows, feat, gates};
     return launch_product(dp, feat, rows, 1, stream);
 }
 
@@ -720,11 +1157,10 @@ extern "C" int clair_bilstm_stream_bwd(const void* x, const void* w, const void*
                                        void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const cudaError_t err = is_bf16
-        ? launch<bf16>(x, w, u, ut, b, h_out, c_out, dh_out, dgates, partial, dx, scratch,
-                       scratch_bytes, batch, t_len, feat, hidden, splits, rows_per_split,
-                       sweep_cluster, sweep_rows, s)
-        : launch<float>(x, w, u, ut, b, h_out, c_out, dh_out, dgates, partial, dx, scratch,
-                        scratch_bytes, batch, t_len, feat, hidden, splits, rows_per_split,
-                        sweep_cluster, sweep_rows, s);
+        ? launch_bf16(x, w, u, ut, b, h_out, c_out, dh_out, dgates, partial, dx, batch, t_len,
+                      feat, hidden, splits, rows_per_split, sweep_rows, s)
+        : launch_f32(x, w, u, b, h_out, c_out, dh_out, dgates, partial, dx, scratch,
+                     scratch_bytes, batch, t_len, feat, hidden, splits, rows_per_split,
+                     sweep_cluster, sweep_rows, s);
     return static_cast<int>(err);
 }

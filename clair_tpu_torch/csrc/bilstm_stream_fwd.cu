@@ -546,7 +546,6 @@ cudaError_t launch(const void* x, const void* w, const void* u, const void* b, v
 // direction's T*B rows m = step*B + r (grid.z = dir), xw (2, T, B, 4H).
 struct StreamXWProblem {
     static constexpr bool kAK = true, kBKMajor = false;  // A [m][k]; B [k][g]
-    static constexpr int kPA = 3, kPB = 3;
     static constexpr bool kDb = false;
     Pieces x, w;  // x (B*T, F) and W (2F, 4H) as three bf16 pieces
     const float* b;
@@ -622,7 +621,7 @@ cudaError_t launch_f32(const void* x, const void* w, const void* u, const void* 
     if (err == cudaSuccess) err = launch_split(w, wp, 2 * static_cast<size_t>(feat), gates, stream);
     if (err != cudaSuccess) return err;
     // xw = x.W + b of every step, both directions
-    const StreamXWProblem gp{Pieces{xp, feat, 3}, Pieces{wp, gates, 3}, static_cast<const float*>(b),
+    const StreamXWProblem gp{Pieces{xp, feat}, Pieces{wp, gates}, static_cast<const float*>(b),
                              static_cast<float*>(xw), batch, t_len, feat, gates, 1.0f / batch};
     err = launch_product(gp, gates, static_cast<int>(n_rows), 2, stream);
     if (err != cudaSuccess) return err;

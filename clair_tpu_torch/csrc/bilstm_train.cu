@@ -129,7 +129,6 @@ struct StackedXH {
 // F for the forward's xw = xs.W + b; grid.z = dir.
 struct StackedGateProblem {
     static constexpr bool kAK = true, kBKMajor = false;  // A [m][k]; B [k][g]
-    static constexpr int kPA = 3, kPB = 3;
     static constexpr bool kDb = false;
     StackedXH xh;
     Pieces w, u;
@@ -162,7 +161,6 @@ struct StackedGateProblem {
 // dgates; grid.z = split * 2 + dir.
 struct StackedWeightSumProblem {
     static constexpr bool kAK = false, kBKMajor = false;  // A [m][a]; B [m][g]
-    static constexpr int kPA = 3, kPB = 3;
     static constexpr bool kDb = true;
     StackedXH xh;
     Pieces dg;  // (T, 2B) rows of the dgates' pieces
@@ -194,7 +192,6 @@ struct StackedWeightSumProblem {
 // reduction over the row's own direction's 4H gates; grid.z = dir.
 struct StackedDxProblem {
     static constexpr bool kAK = true, kBKMajor = true;  // A [m][g]; B [f][g]
-    static constexpr int kPA = 3, kPB = 3;
     static constexpr bool kDb = false;
     StackedXH xh;  // the row map
     Pieces dg, w;
@@ -261,7 +258,7 @@ cudaError_t launch_bwd(const void* xs, const void* w, const void* u, const void*
     if (err != cudaSuccess) return err;
     bf16* at = static_cast<bf16*>(scratch);
     auto carve = [&](const void* src, size_t n_rows, int cols, Pieces& out) {
-        out = Pieces{at, cols, 3};
+        out = Pieces{at, cols};
         if (src != nullptr && err == cudaSuccess) err = launch_split(src, at, n_rows, cols, stream);
         at += 3 * n_rows * cols;
     };
@@ -339,8 +336,8 @@ cudaError_t launch_fwd(const void* xs, const void* w, const void* u, const void*
     if (err == cudaSuccess) err = launch_split(w, wp, 2 * static_cast<size_t>(feat), gates, stream);
     if (err != cudaSuccess) return err;
     // (a) xw = xs.W + b for every step at once, both directions
-    const StackedXH xh{Pieces{xp, feat, 3}, Pieces{}, batch, t_len, feat, hidden, 1.0f / batch};
-    const StackedGateProblem gp{xh, Pieces{wp, gates, 3}, Pieces{}, static_cast<const float*>(b),
+    const StackedXH xh{Pieces{xp, feat}, Pieces{}, batch, t_len, feat, hidden, 1.0f / batch};
+    const StackedGateProblem gp{xh, Pieces{wp, gates}, Pieces{}, static_cast<const float*>(b),
                                 static_cast<float*>(xw), gates, feat};
     err = launch_product(gp, gates, batch * t_len, 2, stream);
     if (err != cudaSuccess) return err;

@@ -3,8 +3,10 @@
 // backward, bilstm_train.cu), for Hopper (sm_90a):
 // - float32 operands as three bf16 pieces in device memory (split_pieces);
 // - one templated tensor-core product (mma_product) that each backward
-//   instantiates with its problems: the gate pre-activations, the weight
-//   sums dW, dU, db and dx;
+//   instantiates with its float32 problems: the gate pre-activations, the
+//   weight sums dW, dU, db and dx (the streaming backward's bf16 mode runs
+//   its products on wgmma fed by TMA, wgmma_product.cuh); the float32
+//   forwards' x.W take it too;
 // - the cell's backward that every reverse sweep runs (cell_backward): the
 //   float32 sweep on a thread-block cluster (lstm_bwd_sweep.cuh) and row 2's
 //   two bf16 sweeps (bilstm_stream_bwd.cu).
@@ -12,10 +14,9 @@
 // A product problem P supplies:
 //   kAK, kBKMajor  whether A ([m][k]) and B ([n][k]) are K-major, else their
 //                  rows run along the reduction ([k][m], [k][n]);
-//   kPA, kPB       the bf16 pieces of each operand; the product sums the
-//                  piece pairs (i, j) with i + j < max(kPA, kPB);
 //   kDb            whether the block row at m = 0 also sums B's columns over
-//                  the reduction (db beside dW and dU);
+//                  the reduction (db beside dW and dU) in float32 on the
+//                  CUDA cores, each row's pieces added first;
 //   a(m, k, ps), bm(n, k, ps)  piece 0 of the 16-byte chunk of A at (m, k)
 //                  and of B at (n, k) in global indices (B's indices as its
 //                  layout has them), null past the edges; piece p is `ps` * p
@@ -25,11 +26,11 @@
 //                  and n + 1, store_db(n, v).
 //
 // Numerics: mma.sync m16n8k16 with bf16 operands and float32 sums, no TF32.
-// A float32 operand v goes as bf16 pieces, each the rounding of what the
-// earlier ones leave: p0 = bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1);
-// with three pieces |v - p0 - p1 - p2| <= 2^-24 |v|, and the pairs i + j >= 3
-// that the product drops are below 2^-24 of it: float32-level products in
-// six passes.
+// Every operand is float32 as kPieces = 3 bf16 pieces, each the rounding of
+// what the earlier ones leave: p0 = bf16(v), p1 = bf16(v - p0),
+// p2 = bf16(v - p0 - p1); |v - p0 - p1 - p2| <= 2^-24 |v|, and the piece
+// pairs i + j >= 3 that the product drops are below 2^-24 of it:
+// float32-level products in six passes.
 #pragma once
 
 #include "lstm_cell.cuh"
@@ -40,17 +41,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr size_t kSmemLimit = 227 * 1024;
+constexpr int kPieces = 3;  // bf16 pieces of a float32 operand
 
 // An operand's rows as bf16 pieces: piece p of row r starts at
-// base + (r * pieces + p) * stride elements (bf16 mode's x, h, W and U are
-// one piece, the tensors themselves). at() gives piece 0; piece p is
-// `stride` * p elements further.
+// base + (r * kPieces + p) * stride elements. at() gives piece 0; piece p
+// is `stride` * p elements further.
 struct Pieces {
     const bf16* base;
-    int stride, pieces;
+    int stride;
     __device__ const bf16* at(size_t row, int col, int& piece_stride) const {
         piece_stride = stride;
-        return base + row * pieces * static_cast<size_t>(stride) + col;
+        return base + row * kPieces * static_cast<size_t>(stride) + col;
     }
 };
 
@@ -82,9 +83,9 @@ __global__ void split_pieces(const float* __restrict__ src, bf16* __restrict__ d
         const int c = static_cast<int>(i - r * cols);
         float rest = src[i];
 #pragma unroll
-        for (int p = 0; p < 3; ++p) {
+        for (int p = 0; p < kPieces; ++p) {
             const bf16 piece = __float2bfloat16_rn(rest);
-            dst[(r * 3 + p) * cols + c] = piece;
+            dst[(r * kPieces + p) * cols + c] = piece;
             rest -= __bfloat162float(piece);
         }
     }
@@ -122,18 +123,16 @@ template <class P>
 struct ProductLayout {
     using LA = Tile<P::kAK, kBM>;
     using LB = Tile<P::kBKMajor, kBN>;
-    static constexpr int kStageA = P::kPA * LA::kElems;  // one stage of A's pieces
-    static constexpr int kStageB = P::kPB * LB::kElems;
+    static constexpr int kStageA = kPieces * LA::kElems;  // one stage of A's pieces
+    static constexpr int kStageB = kPieces * LB::kElems;
     static constexpr size_t kBytes = kStages * sizeof(bf16) * (kStageA + kStageB);
-    // bf16 mode (at most three pieces in all) fits two blocks an SM
-    static constexpr int kMinBlocks = P::kPA + P::kPB <= 3 ? 2 : 1;
 };
 
 // Start the cp.async of one stage of an operand's pieces: rows x columns of
 // 16-byte chunks, piece 0 of each from chunk(tile row, tile column, stride)
 // in global indices and piece p `stride` * p elements further, zeroed where
 // it is null or past the reduction's end.
-template <class L, bool KMajor, int NPieces, class Chunk>
+template <class L, bool KMajor, class Chunk>
 __device__ __forceinline__ void load_stage(bf16* dst, Chunk chunk, int out0, int k0, int k_end,
                                            const void* any) {
     constexpr int row_chunks = L::kCols / 8;
@@ -145,7 +144,7 @@ __device__ __forceinline__ void load_stage(bf16* dst, Chunk chunk, int out0, int
         int stride = 0;
         const bf16* src = red < k_end ? chunk(row, col, stride) : nullptr;
 #pragma unroll
-        for (int p = 0; p < NPieces; ++p)
+        for (int p = 0; p < kPieces; ++p)
             cp_async16_or_zero(dst + p * L::kElems + r * L::kPitch + c,
                                src != nullptr ? src + p * stride : nullptr, any);
     }
@@ -193,7 +192,7 @@ __device__ __forceinline__ void b_fragments(const bf16* tile, int wn, int kk, un
 // reduction). grid = (ceil(n_extent / kBN), ceil(m_extent / kBM), problem's
 // z), kThreads.
 template <class P>
-__global__ void __launch_bounds__(kThreads, ProductLayout<P>::kMinBlocks) mma_product(const P p) {
+__global__ void __launch_bounds__(kThreads, 1) mma_product(const P p) {
     using S = ProductLayout<P>;
     using LA = typename S::LA;
     using LB = typename S::LB;
@@ -211,7 +210,6 @@ __global__ void __launch_bounds__(kThreads, ProductLayout<P>::kMinBlocks) mma_pr
     auto a_chunk = [&](int row, int col, int& stride) { return p.a(row, col, stride); };
     auto b_chunk = [&](int row, int col, int& stride) { return p.bm(row, col, stride); };
     const void* any = p.base();  // a device address for the zero-filled chunks
-    constexpr int kPasses = P::kPA > P::kPB ? P::kPA : P::kPB;  // piece pairs i + j below this
 
     float acc[kMT][kNT][4];
 #pragma unroll
@@ -227,8 +225,8 @@ __global__ void __launch_bounds__(kThreads, ProductLayout<P>::kMinBlocks) mma_pr
     auto stage = [&](int s) {
         const int buf = s % kStages, k0 = k_begin + s * kBK;
         if (k0 < k_end) {
-            load_stage<LA, P::kAK, P::kPA>(a_stages + buf * S::kStageA, a_chunk, m0, k0, k_end, any);
-            load_stage<LB, P::kBKMajor, P::kPB>(b_stages + buf * S::kStageB, b_chunk, n0, k0, k_end, any);
+            load_stage<LA, P::kAK>(a_stages + buf * S::kStageA, a_chunk, m0, k0, k_end, any);
+            load_stage<LB, P::kBKMajor>(b_stages + buf * S::kStageB, b_chunk, n0, k0, k_end, any);
         }
         cp_async_commit();
     };
@@ -250,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, ProductLayout<P>::kMinBlocks) mma_pr
                 for (int r = 0; r < kBK; ++r) {
                     float v = 0.0f;
 #pragma unroll
-                    for (int q = 0; q < P::kPB; ++q)
+                    for (int q = 0; q < kPieces; ++q)
                         v += __bfloat162float(b_s[q * LB::kElems + r * LB::kPitch + threadIdx.x]);
                     db += v;
                 }
@@ -258,17 +256,17 @@ __global__ void __launch_bounds__(kThreads, ProductLayout<P>::kMinBlocks) mma_pr
         }
 #pragma unroll
         for (int kk = 0; kk < kBK; kk += 16) {
-            unsigned bfr[P::kPB][kNT][2];
+            unsigned bfr[kPieces][kNT][2];
 #pragma unroll
-            for (int j = 0; j < P::kPB; ++j)
+            for (int j = 0; j < kPieces; ++j)
                 b_fragments<P::kBKMajor, LB::kPitch>(b_s + j * LB::kElems, wn, kk, bfr[j]);
 #pragma unroll
-            for (int i = 0; i < P::kPA; ++i) {
+            for (int i = 0; i < kPieces; ++i) {
                 unsigned af[kMT][4];
                 a_fragments<P::kAK, LA::kPitch>(a_s + i * LA::kElems, wm, kk, af);
 #pragma unroll
-                for (int j = 0; j < P::kPB; ++j) {
-                    if (i + j >= kPasses) continue;  // the pairs below 2^-24 of the product
+                for (int j = 0; j < kPieces; ++j) {
+                    if (i + j >= kPieces) continue;  // the pairs below 2^-24 of the product
 #pragma unroll
                     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll

@@ -166,3 +166,27 @@ def test_trace_split_counts_every_backward_sweep_as_row_2(tmp_path, kernel):
     split = split_train_steps(str(path))
     assert split["per_step"] == [{"row 1": 0.0, "row 2": 0.04, "forward": 0.0, "loss": 0.0,
                                   "backward": 0.0, "optimizer": 0.0}]
+
+
+@pytest.mark.parametrize("kernel", [
+    "void (anonymous namespace)::wgmma_product<(anonymous namespace)::TmaGateProblem>(P)",
+    "void (anonymous namespace)::wgmma_product<(anonymous namespace)::TmaWeightSumProblem>(P)",
+    "void (anonymous namespace)::wgmma_product<(anonymous namespace)::TmaDxProblem>(P)",
+])
+def test_trace_split_counts_the_bf16_products_as_row_2(tmp_path, kernel):
+    """Row 2's bf16 products (wgmma fed by TMA) count toward row 2 by their
+    own kernel name, so the bf16 step's split gives row 2 its whole time."""
+    from tools.torch_trace_split import KERNEL_ROWS, split_train_steps
+
+    assert "wgmma_product" in dict(KERNEL_ROWS)["row 2"]
+    events = [
+        _x("user_annotation", "train_step.forward", 0, 100, 1),
+        _x("cpu_op", "autograd::engine::evaluate_function: BiLSTMStreamBackward", 200, 100, 2),
+        _x("cuda_runtime", "cudaLaunchKernel", 210, 1, 2, correlation=1),
+        _x("kernel", kernel, 1300, 40, 7, correlation=1),
+    ]
+    path = tmp_path / "t.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    split = split_train_steps(str(path))
+    assert split["per_step"] == [{"row 1": 0.0, "row 2": 0.04, "forward": 0.0, "loss": 0.0,
+                                  "backward": 0.0, "optimizer": 0.0}]

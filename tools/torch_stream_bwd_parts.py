@@ -5,7 +5,10 @@ or with ``--pair train`` row 6, the resident training backward
 each kernel the backward's entry point runs (torch.profiler's
 key_averages), per layer of ``ModelConfig()`` (lstm1: F = 32 without dx,
 lstm2: F = 256 with dx; H = 128, T = 33) and dtype, at the training batch,
-beside the CUDA-event time of the whole call.
+beside the CUDA-event time of the whole call. The kernels fall into parts by
+chip_smoke.BWD_PARTS: row 2's bf16 products are
+``wgmma_product<TmaGateProblem>``, ``<TmaWeightSumProblem>`` and
+``<TmaDxProblem>``, its float32 ones ``mma_product<GateProblem>``, ...
 
     python3 tools/torch_stream_bwd_parts.py [--pair stream|train] [--batch 10000]
                                             [--sweep_rows 0,16,32] [--f32_sweep 2:16,4:32]

@@ -37,9 +37,10 @@ from typing import Dict
 # names: row 1 the streaming forward (bf16: its kernel; float32: the x.W
 # product and the sweep on its layout), row 2 the streaming backward's four
 # (its sweeps: bf16 bilstm_bwd_sweep_mma and _fma, float32 lstm_bwd_sweep;
-# float32's split of operands into bf16 pieces counts here for both rows)
+# its products: bf16 wgmma_product, float32 mma_product; float32's split of
+# operands into bf16 pieces counts here for both rows)
 KERNEL_ROWS = (("row 1", ("bilstm_stream_fwd_kernel", "StreamXWProblem", "StreamForward")),
-               ("row 2", ("lstm_bwd_sweep", "mma_product", "split_pieces")))
+               ("row 2", ("lstm_bwd_sweep", "wgmma_product", "mma_product", "split_pieces")))
 PARTS = ("row 1", "row 2", "forward", "loss", "backward", "optimizer")
 _CPU_CATS = ("cpu_op", "user_annotation", "python_function")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
