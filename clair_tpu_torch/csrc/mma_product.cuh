@@ -30,7 +30,11 @@
 // what the earlier ones leave: p0 = bf16(v), p1 = bf16(v - p0),
 // p2 = bf16(v - p0 - p1); |v - p0 - p1 - p2| <= 2^-24 |v|, and the piece
 // pairs i + j >= 3 that the product drops are below 2^-24 of it:
-// float32-level products in six passes.
+// float32-level products in six passes. The pair (0, 0) sums in one float32
+// accumulator and the five smaller pairs in another, added once per tile:
+// the tensor cores' float32 accumulate cuts toward zero, and one
+// accumulator over every pass (96 mma steps at K = 256, 80 of them small
+// pairs) drifted from float64 by up to 2e-5 (PERF.md, Findings).
 #pragma once
 
 #include "lstm_cell.cuh"
@@ -211,13 +215,14 @@ __global__ void __launch_bounds__(kThreads, 1) mma_product(const P p) {
     auto b_chunk = [&](int row, int col, int& stride) { return p.bm(row, col, stride); };
     const void* any = p.base();  // a device address for the zero-filled chunks
 
-    float acc[kMT][kNT][4];
+    // the pair (0, 0)'s sums, and the five smaller pairs' ("Numerics")
+    float acc[kMT][kNT][4], low[kMT][kNT][4];
 #pragma unroll
     for (int i = 0; i < kMT; ++i)
 #pragma unroll
         for (int j = 0; j < kNT; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = low[i][j][e] = 0.0f;
     float db = 0.0f;
 
     // a ring of kStages buffers: stage s + kStages - 1 is loading while s is
@@ -270,7 +275,8 @@ __global__ void __launch_bounds__(kThreads, 1) mma_product(const P p) {
 #pragma unroll
                     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-                        for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[j][nt]);
+                        for (int nt = 0; nt < kNT; ++nt)
+                            mma_bf16(i + j == 0 ? acc[mt][nt] : low[mt][nt], af[mt], bfr[j][nt]);
                 }
             }
         }
@@ -288,7 +294,9 @@ __global__ void __launch_bounds__(kThreads, 1) mma_product(const P p) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int m = m0 + wm + mt * 16 + gid + h * 8;
-                if (m < m_extent) p.store(m, n, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+                if (m < m_extent)
+                    p.store(m, n, acc[mt][nt][2 * h] + low[mt][nt][2 * h],
+                            acc[mt][nt][2 * h + 1] + low[mt][nt][2 * h + 1]);
             }
         }
     if (sums_db && n0 + static_cast<int>(threadIdx.x) < n_extent) p.store_db(n0 + threadIdx.x, db);

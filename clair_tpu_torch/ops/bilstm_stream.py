@@ -108,15 +108,21 @@ def split_bf16_product(equation: str, a: torch.Tensor, b: torch.Tensor, pieces: 
     (csrc/bilstm_stream_bwd.cu, "Numerics"): ``torch.einsum(equation, a, b)``
     with a and b cut into ``pieces`` bf16 pieces each and the piece pairs
     (i, j) with i + j < pieces summed in float32 (the product of two bf16
-    values is exact in float32). A bf16 operand's later pieces are 0, so it
-    goes as it is. For the tests; no kernel path calls it."""
-    out = None
+    values is exact in float32), in the kernels' order: the pair (0, 0)
+    apart from the smaller pairs, which sum in the order the kernels issue
+    them, and the two sums added last (csrc/mma_product.cuh, "Numerics").
+    A bf16 operand's later pieces are 0, so it goes as it is. For the
+    tests; no kernel path calls it."""
+    high, low = None, None
     for i, ai in enumerate(bf16_pieces(a, pieces)):
         for j, bj in enumerate(bf16_pieces(b, pieces)):
             if i + j < pieces:
                 term = torch.einsum(equation, ai, bj)
-                out = term if out is None else out + term
-    return out
+                if i + j == 0:
+                    high = term
+                else:
+                    low = term if low is None else low + term
+    return high if low is None else high + low
 
 
 def _per_dir(t: torch.Tensor, hidden: int) -> torch.Tensor:

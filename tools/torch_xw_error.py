@@ -1,13 +1,11 @@
 """The float32 x.W product that rows 1 (float32 mode) and 5 run ahead of
 their sweeps, against float64, and what each tree's product costs.
 
-    python3 tools/torch_xw_error.py --parent DIR [--variants] [--rounds 3]
+    python3 tools/torch_xw_error.py --parent DIR [--rounds 3]
 
-For each tree (this checkout, the unpacked checkout at ``--parent``, and
-with ``--variants`` the two changes of the product's accumulation in
-VARIANTS applied to the parent's ``csrc/mma_product.cuh``), at lstm2's shape
-(B = 10,000, T = 33, F = 256, H = 128) and lstm1's (F = 32), on the inputs
-chip_smoke.py's phase 3 gives those shapes:
+For each tree (this checkout and the unpacked checkout at ``--parent``), at
+lstm2's shape (B = 10,000, T = 33, F = 256, H = 128) and lstm1's (F = 32),
+on the inputs chip_smoke.py's phase 3 gives those shapes:
 
 1. the xw buffer each forward writes (row 1 float32: (2, T, B, 4H); row 5:
    (T, 2B, 4H)) against x.W + b in float64: max |error|, its share of
@@ -29,7 +27,7 @@ chip_smoke.py's phase 3 gives those shapes:
 
 Each tree's kernels build with nvcc into build/xw_error/<tree>/, one process
 a source, all started together; ptxas's registers and spills of each
-product are printed. Prints the card's name and power limit. Needs a CUDA
+product, and every compiler warning, are printed. Prints the card's name and power limit. Needs a CUDA
 card and nvcc.
 """
 
@@ -60,125 +58,11 @@ KERNELS = ("bilstm_stream_fwd", "bilstm_stream_bwd", "bilstm_train", "bilstm")
 LAYERS = (("lstm1", 32), ("lstm2", 256))
 T_LEN, HIDDEN = 33, 128
 
-# Two changes of mma_product's accumulation for the problems with three
-# pieces an operand (float32 operands), as (old, new) text of the parent's
-# mma_product.cuh; the bf16 mode's problems (at most three pieces in all)
-# keep their code. Measured, not landed (PERF.md, Findings): each brings the
-# kernels' h nearer float64 than the plain version's, neither within 1e-6
-# of the plain version, and (b) costs rows 2 and 6 in float32 4.7-7.5% on
-# an H100.
-# (a) the small piece pairs (i + j >= 1) summed in a second accumulator,
-#     added to the (0, 0) pair's at the end;
-LOW_APART = [
-    ("    float db = 0.0f;\n",
-     "    float db = 0.0f;\n"
-     "    constexpr bool kLowApart = P::kPA == 3 || P::kPB == 3;\n"
-     "    float low[kLowApart ? kMT : 1][kLowApart ? kNT : 1][4];\n"
-     "#pragma unroll\n"
-     "    for (int i = 0; i < (kLowApart ? kMT : 1); ++i)\n"
-     "#pragma unroll\n"
-     "        for (int j = 0; j < (kLowApart ? kNT : 1); ++j)\n"
-     "#pragma unroll\n"
-     "            for (int e = 0; e < 4; ++e) low[i][j][e] = 0.0f;\n"),
-    ("                        for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], "
-     "bfr[j][nt]);\n",
-     "                        for (int nt = 0; nt < kNT; ++nt) {\n"
-     "                            if constexpr (kLowApart) {\n"
-     "                                if (i + j > 0) {\n"
-     "                                    mma_bf16(low[mt][nt], af[mt], bfr[j][nt]);\n"
-     "                                    continue;\n"
-     "                                }\n"
-     "                            }\n"
-     "                            mma_bf16(acc[mt][nt], af[mt], bfr[j][nt]);\n"
-     "                        }\n"),
-    ("    cp_async_wait<0>();  // no copy outlives the block\n",
-     "    if constexpr (kLowApart) {\n"
-     "#pragma unroll\n"
-     "        for (int mt = 0; mt < kMT; ++mt)\n"
-     "#pragma unroll\n"
-     "            for (int nt = 0; nt < kNT; ++nt)\n"
-     "#pragma unroll\n"
-     "                for (int e = 0; e < 4; ++e) acc[mt][nt][e] += low[mt][nt][e];\n"
-     "    }\n"
-     "    cp_async_wait<0>();  // no copy outlives the block\n"),
-]
-# (b) promotion: each 16-deep k-step's passes of an m16 tile into a zeroed
-#     fragment, the smallest pairs first and the (0, 0) pair last, then added
-#     to the float32 sums with ordinary adds.
-_OLD_PASSES = """#pragma unroll
-            for (int i = 0; i < P::kPA; ++i) {
-                unsigned af[kMT][4];
-                a_fragments<P::kAK, LA::kPitch>(a_s + i * LA::kElems, wm, kk, af);
-#pragma unroll
-                for (int j = 0; j < P::kPB; ++j) {
-                    if (i + j >= kPasses) continue;  // the pairs below 2^-24 of the product
-#pragma unroll
-                    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-                        for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[j][nt]);
-                }
-            }
-"""
-PROMOTED = [
-    ("// The A fragments of this warp's four m16 tiles",
-     """template <bool KMajor, int P>
-__device__ __forceinline__ void a_fragment(const bf16* tile, int m, int kk, unsigned (&f)[4]) {
-    const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
-    if constexpr (KMajor)
-        ldmatrix_x4(f, tile + (m + r + (q & 1) * 8) * P + kk + (q >> 1) * 8);
-    else
-        ldmatrix_x4_trans(f, tile + (kk + r + (q >> 1) * 8) * P + m + (q & 1) * 8);
-}
-
-// The A fragments of this warp's four m16 tiles"""),
-    ("    constexpr int kPasses = P::kPA > P::kPB ? P::kPA : P::kPB;  // piece pairs i + j below this\n",
-     "    constexpr int kPasses = P::kPA > P::kPB ? P::kPA : P::kPB;  // piece pairs i + j below this\n"
-     "    constexpr bool kPromote = P::kPA == 3 || P::kPB == 3;\n"),
-    (_OLD_PASSES,
-     """            if constexpr (kPromote) {
-#pragma unroll
-                for (int mt = 0; mt < kMT; ++mt) {
-                    unsigned af[P::kPA][4];
-#pragma unroll
-                    for (int i = 0; i < P::kPA; ++i)
-                        a_fragment<P::kAK, LA::kPitch>(a_s + i * LA::kElems, wm + mt * 16, kk, af[i]);
-                    float part[kNT][4];
-#pragma unroll
-                    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) part[nt][e] = 0.0f;
-#pragma unroll
-                    for (int level = kPasses - 1; level >= 0; --level)
-#pragma unroll
-                        for (int i = 0; i < P::kPA; ++i) {
-                            const int j = level - i;
-                            if (j < 0 || j >= P::kPB) continue;
-#pragma unroll
-                            for (int nt = 0; nt < kNT; ++nt) mma_bf16(part[nt], af[i], bfr[j][nt]);
-                        }
-#pragma unroll
-                    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[nt][e];
-                }
-            } else {
-""" + _OLD_PASSES + "            }\n"),
-]
-VARIANTS = {"low pairs apart": LOW_APART, "promoted": PROMOTED}
-
-
-def tree_csrc(name: str, csrc: Path, patches) -> Path:
-    """A copy of ``csrc`` with ``patches`` applied to mma_product.cuh, under
-    OUT/<name>/csrc."""
+def tree_csrc(name: str, csrc: Path) -> Path:
+    """A copy of ``csrc`` under OUT/<name>/csrc."""
     out = OUT / name.replace(" ", "_") / "csrc"
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
-    source = (out / "mma_product.cuh").read_text()
-    for old, new in patches:
-        if source.count(old) != 1:
-            raise SystemExit(f"variant {name!r} does not apply: {old[:60]!r}")
-        source = source.replace(old, new)
-    (out / "mma_product.cuh").write_text(source)
     return out
 
 
@@ -206,6 +90,9 @@ def build_trees(trees: dict) -> None:
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"{name}: {kernel} did not build:\n{err[-4000:]}")
+        for line in err.splitlines():
+            if "warning" in line.lower():
+                print(f"  {name} {kernel} WARNING: {line.strip()}")
         function = None
         for line in err.splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)",
@@ -443,8 +330,6 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", required=True,
                         help="an unpacked checkout whose clair_tpu_torch/csrc is the yardstick")
-    parser.add_argument("--variants", action="store_true",
-                        help="also the parent's csrc with each change of VARIANTS")
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--iters", type=int, default=5)
     args = parser.parse_args()
@@ -455,16 +340,13 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(f"card: {card}", flush=True)
     this_tree, parent = build.CSRC, Path(args.parent).resolve() / "clair_tpu_torch" / "csrc"
-    trees = {"parent": tree_csrc("parent", parent, [])}
+    trees = {"parent": tree_csrc("parent", parent)}
 
     def digest(d: Path) -> str:
         return hashlib.sha256(b"".join(p.read_bytes() for p in sorted(d.iterdir()))).hexdigest()
 
     if digest(this_tree) != digest(trees["parent"]):
-        trees["this tree"] = tree_csrc("this tree", this_tree, [])
-    if args.variants:
-        for name, patches in VARIANTS.items():
-            trees[name] = tree_csrc(name, parent, patches)
+        trees["this tree"] = tree_csrc("this tree", this_tree)
     build_trees(trees)
     dev = torch.device("cuda")
     check_errors(trees, dev)
