@@ -21,6 +21,7 @@ channel-normalized X blocks.
 from __future__ import annotations
 
 import io as _io
+import itertools
 import os
 import pickle
 import queue
@@ -43,6 +44,7 @@ from clair_tpu_torch.params import (
     TRAIN_BATCH_SIZE,
 )
 from clair_tpu_torch.task.labels import label_vector_from_reference, label_vector_from_truth
+from clair_tpu_torch.utils import trace
 from clair_tpu_torch.utils.genomics import BASE2ACGT, BASIC_BASES
 from clair_tpu_torch.utils.intervals import BedIntervals
 from clair_tpu_torch.io import zstd
@@ -332,6 +334,14 @@ class EpochBatches:
     step. ``decompress_workers``: None = one per spare core, capped at 4;
     0 = inline. ``cast_to_float32=False`` keeps int16-packed blocks in their
     stored dtype, for a consumer that casts on the device.
+
+    Spans (utils/trace.py), each carrying the sequence number of the batch
+    it serves: the consumer's ``feed.wait`` on the queue (value: the
+    batch's index in the epoch; the first also holds the producer's start)
+    with the queue's depth before the get as the counter ``feed.depth``,
+    and ``feed.end`` for the epoch's end; the producer's ``feed.block_wait``
+    on the decompress pool, ``feed.assemble`` of a batch from its blocks and
+    ``feed.put_wait`` while the queue is full.
     """
 
     dataset: BinDataset
@@ -348,30 +358,49 @@ class EpochBatches:
         end = object()
         stop = threading.Event()
 
+        # the sequence number of this epoch's first batch
+        first = trace.batch() + 1
+
         def put(item) -> bool:
+            try:
+                q.put_nowait(item)
+                return True
+            except queue.Full:
+                pass
             # a bounded put that notices an abandoned consumer
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.2)
-                    return True
-                except queue.Full:
-                    continue
+            with trace.span("feed.put_wait"):
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.2)
+                        return True
+                    except queue.Full:
+                        continue
             return False
 
         def producer():
             try:
+                trace.set_batch(first)
                 for item in self._generate():
                     if not put(item):
                         return
+                    trace.set_batch(trace.batch() + 1)
                 put(end)
             except BaseException as exc:  # raised again in the consumer
                 put(exc)
 
         thread = threading.Thread(target=producer, daemon=True)
-        thread.start()
         try:
-            while True:
-                item = q.get()
+            for index in itertools.count():
+                with trace.span("feed.wait", index, first + index) as waited:
+                    if index == 0:  # the epoch's first wait holds its restart
+                        thread.start()
+                    depth = q.qsize()
+                    item = q.get()
+                    if item is end or isinstance(item, BaseException):
+                        waited.name, waited.value = "feed.end", None
+                    else:
+                        trace.set_batch(first + index)
+                        trace.count("feed.depth", depth)
                 if item is end:
                     break
                 if isinstance(item, BaseException):
@@ -380,7 +409,8 @@ class EpochBatches:
                 yield item
         finally:
             stop.set()
-            thread.join()
+            if thread.ident is not None:  # started
+                thread.join()
 
     def _block_stream(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """(x, y) block pairs in block_order, decompressed ahead on a pool
@@ -413,7 +443,8 @@ class EpochBatches:
             for _ in range(2 * workers):
                 submit()
             while pending:
-                x, y = pending.popleft().result()
+                with trace.span("feed.block_wait"):
+                    x, y = pending.popleft().result()
                 submit()
                 yield x, y
 
@@ -467,7 +498,8 @@ class EpochBatches:
             if buffered == 0:
                 return
             n = min(want, buffered)
-            x, y = take(n)
+            with trace.span("feed.assemble"):
+                x, y = take(n)
             produced += n
             yield x, y, True
 
@@ -476,5 +508,6 @@ class EpochBatches:
             if buffered == 0:
                 return
             n = min(self.val_batch_size, buffered)
-            x, y = take(n)
+            with trace.span("feed.assemble"):
+                x, y = take(n)
             yield x, y, False

@@ -14,6 +14,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from clair_tpu_torch.task.labels import GENOTYPE_SPAN, GT21_SPAN, LENGTH1_SPAN, LENGTH2_SPAN
+from clair_tpu_torch.utils import trace
 
 COMPONENTS = ("gt21", "genotype", "indel_length_1", "indel_length_2")
 
@@ -99,7 +100,10 @@ def total_loss(
     if l2_raw is None:
         l2_raw = l2_regularization(params)
     l2 = l2_raw * l2_lambda
-    weights = torch.tensor(task_weights, dtype=torch.float32, device=y.device)
+    # from pageable memory: on a CUDA device the copy waits for the work
+    # queued before it, the forward (the span times that wait)
+    with trace.span("loss.sync"):
+        weights = torch.tensor(task_weights, dtype=torch.float32, device=y.device)
     loss = torch.sum(weights * torch.stack([*task_losses, l2]))
     components = dict(zip(COMPONENTS, task_losses))
     components["l2_without_lambda"] = l2_raw

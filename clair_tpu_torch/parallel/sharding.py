@@ -31,12 +31,12 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
-from torch.profiler import record_function
 
 from clair_tpu_torch.params import GRADIENT_CLIP_NORM, MOMENTUM
 from clair_tpu_torch.models.clair import ClairNet
 from clair_tpu_torch.models.losses import COMPONENTS, l2_regularization, total_loss
 from clair_tpu_torch.parallel.tensor_parallel import TensorParallel, shard_dim
+from clair_tpu_torch.utils import trace
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float,
@@ -96,8 +96,10 @@ class ClippedOptimizer:
 def make_optimizer(named_params: Dict[str, torch.Tensor], optimizer_name: str = "Adam",
                    learning_rate: float = 1e-3, momentum: float = MOMENTUM) -> ClippedOptimizer:
     """Gradient clip (global norm 5) + Adam or SGD-M over the named
-    parameters, with a mutable learning rate."""
-    return ClippedOptimizer(named_params, optimizer_name, learning_rate, momentum)
+    parameters, with a mutable learning rate. The span ``optimizer.build``
+    times it: the first Adam of a process imports torch._dynamo."""
+    with trace.span("optimizer.build"):
+        return ClippedOptimizer(named_params, optimizer_name, learning_rate, momentum)
 
 
 def set_learning_rate(optimizer: ClippedOptimizer, learning_rate: float) -> None:
@@ -205,17 +207,17 @@ def make_train_step(model: ClairNet, optimizer: ClippedOptimizer, mesh=None):
         forward.register_comm_hook(parallel.group, _sum_hook)
         l2_of, reported = parallel.l2_lambda, parallel.summed
 
-    # the ranges name the step's parts in a profiler trace
-    # (tools/torch_trace_split.py); they cost a few microseconds a step
+    # the spans name the step's parts, in a profiler's trace too, where
+    # tools/torch_trace_split.py splits the step by these names
     def step(x, y, generator, l2_lambda, sample_weights=None):
-        with record_function("train_step.forward"):
+        with trace.span("train_step.forward"):
             optimizer.zero_grad()
             logits = forward(x, generator)
-        with record_function("train_step.loss"):
+        with trace.span("train_step.loss"):
             loss, components = _loss(model, logits, y, l2_of(l2_lambda), sample_weights)
-        with record_function("train_step.backward"):
+        with trace.span("train_step.backward"):
             loss.backward()
-        with record_function("train_step.optimizer"):
+        with trace.span("train_step.optimizer"):
             optimizer.step(model.tensor_parallel)
         return reported(loss, components)
 

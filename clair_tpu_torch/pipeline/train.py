@@ -93,6 +93,7 @@ from clair_tpu_torch.parallel.sharding import (
     make_train_step,
     set_learning_rate,
 )
+from clair_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -151,35 +152,87 @@ class TrainResult:
 class _StepValues:
     """A step's loss and components on their way to the host: on a CUDA
     device the copy into pinned memory starts at once, and ``read`` waits
-    only for it, not for steps dispatched after."""
+    only for it, not for steps dispatched after. Spans: ``values.copy``
+    (the copy's enqueue) and ``values.wait`` (``read``'s wait for the
+    device, which the host meets only where it ran ahead of the card),
+    both of the step's batch."""
 
     def __init__(self, loss: torch.Tensor, components: dict, is_training: bool):
         self.is_training = is_training
-        values = torch.stack([loss, *(components[k] for k in _REPORTED[1:])]).float()
-        self._done = None
-        if values.is_cuda:
-            self._host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
-            self._host.copy_(values, non_blocking=True)
-            self._done = torch.cuda.Event()
-            self._done.record(torch.cuda.current_stream(values.device))
-        else:
-            self._host = values
+        self._batch = trace.batch()
+        with trace.span("values.copy"):
+            values = torch.stack([loss, *(components[k] for k in _REPORTED[1:])]).float()
+            self._done = None
+            if values.is_cuda:
+                self._host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+                self._host.copy_(values, non_blocking=True)
+                self._done = torch.cuda.Event()
+                self._done.record(torch.cuda.current_stream(values.device))
+            else:
+                self._host = values
 
     def read(self) -> dict:
-        if self._done is not None:
-            self._done.synchronize()
+        with trace.span("values.wait", batch=self._batch):
+            if self._done is not None:
+                self._done.synchronize()
         return dict(zip(_REPORTED, self._host.tolist()))
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A feed batch on the device; from pinned memory without blocking on a
-    CUDA device (the pinned buffer is held until the copy is done)."""
-    if device.type != "cuda":
-        return torch.from_numpy(np.array(array))
-    dtype = torch.from_numpy(np.empty(0, array.dtype)).dtype
-    host = torch.empty(array.shape, dtype=dtype, pin_memory=True)
-    host.numpy()[...] = array
-    return host.to(device, non_blocking=True)
+    CUDA device (the pinned buffer is held until the copy is done). Spans:
+    ``dispatch.to_device``, and ``dispatch.pin_copy`` around the pinned
+    buffer's allocation and fill."""
+    with trace.span("dispatch.to_device"):
+        if device.type != "cuda":
+            return torch.from_numpy(np.array(array))
+        dtype = torch.from_numpy(np.empty(0, array.dtype)).dtype
+        with trace.span("dispatch.pin_copy"):
+            host = torch.empty(array.shape, dtype=dtype, pin_memory=True)
+            host.numpy()[...] = array
+        return host.to(device, non_blocking=True)
+
+
+# a train step's host dispatch: the spans on the dispatching thread around
+# the batch's copy, the step's enqueue and its values' copy
+_DISPATCH_SPANS = ("dispatch.to_device", "train_step.forward", "train_step.loss",
+                   "train_step.backward", "train_step.optimizer", "values.copy")
+
+
+def _host_line(records: Sequence[trace.Record], lost: int = 0) -> str:
+    """An epoch's host side from its spans (utils/trace.py): the feed's
+    wait a batch and the share of batches that found its queue empty, the
+    producer's wait on the decompress pool a batch, the host's dispatch a
+    train step less the loss's wait for the forward, that wait, and how
+    many reads of a step's values made one step behind (after the next
+    batch's dispatch began) waited over 0.1 ms for the card (the host had
+    run ahead of it). ``lost``: the records the ring let go during the
+    epoch, so that the line covers only its last batches."""
+    by_name = {}
+    for r in records:
+        by_name.setdefault(r.name, []).append(r)
+
+    def ms(name, keep=lambda r: True):
+        return sum((r.end_ns - r.start_ns) / 1e6 for r in by_name.get(name, ()) if keep(r))
+
+    batches = max(len(by_name.get("feed.wait", ())), 1)
+    starved = sum(r.value == 0 for r in by_name.get("feed.depth", ()))
+    train = {r.batch for r in by_name.get("train_step.forward", ())}
+    steps = max(len(train), 1)
+    dispatch = sum(ms(name, lambda r: r.batch in train) for name in _DISPATCH_SPANS)
+    sync = ms("loss.sync", lambda r: r.parent == "train_step.loss")
+    begun = {r.batch for r in by_name.get("dispatch.to_device", ())}
+    reads = [r for r in by_name.get("values.wait", ()) if r.batch + 1 in begun]
+    ahead = sum(r.end_ns - r.start_ns > 100_000 for r in reads)
+    line = (f"feed wait {ms('feed.wait') / batches:.2f} ms a batch, "
+            f"{100.0 * starved / batches:.1f}% starved; "
+            f"block wait {ms('feed.block_wait') / batches:.2f} ms a batch; "
+            f"dispatch {(dispatch - sync) / steps:.2f} ms a train step less the loss's sync "
+            f"{sync / steps:.2f} ms; host ahead in {ahead} of {len(reads)} reads")
+    if lost:
+        line += (f"; the ring let go {lost} records: the line covers the epoch's last "
+                 f"{len(by_name.get('feed.wait', ()))} batches")
+    return line
 
 
 def _check_supported(config: TrainingConfig, device: torch.device) -> None:
@@ -277,6 +330,7 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
     epoch = start_epoch
     while True:
         epoch_start = time.time()
+        epoch_start_ns, epoch_dropped = time.perf_counter_ns(), trace.dropped()
         sums = {"train": 0.0, "val": 0.0, **{k: 0.0 for k in _REPORTED[1:]}}
 
         def account(pending: _StepValues) -> None:
@@ -321,6 +375,8 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
             *(sums[k] / max(n_val, 1) for k in COMPONENTS),
         )
         logger.info("[INFO] Epoch time elapsed: %.2f s", time.time() - epoch_start)
+        logger.info("[INFO] Epoch host: %s", _host_line(trace.records(since_ns=epoch_start_ns),
+                                                        trace.dropped() - epoch_dropped))
         training_losses.append((train_loss_sum, epoch))
         validation_losses.append((val_loss_sum, epoch))
 
