@@ -331,9 +331,14 @@ class EpochBatches:
 
     Blocks decompress on a thread pool (zstd and LZ4 release the interpreter
     lock) feeding a producer thread, so the host feed overlaps the device
-    step. ``decompress_workers``: None = one per spare core, capped at 4;
-    0 = inline. ``cast_to_float32=False`` keeps int16-packed blocks in their
-    stored dtype, for a consumer that casts on the device.
+    step. ``prefetch``: the batches the producer holds ready. The pool and
+    the producer contend with the consumer's thread for the interpreter
+    lock while they run, and they run flat out until the queue is full:
+    a deep queue, filled anew at each epoch's start, slows the consumer's
+    next several steps, and two batches ready already cover the time the
+    producer takes to make the next. ``decompress_workers``: None = one per spare core, capped
+    at 4; 0 = inline. ``cast_to_float32=False`` keeps int16-packed blocks
+    in their stored dtype, for a consumer that casts on the device.
 
     Spans (utils/trace.py), each carrying the sequence number of the batch
     it serves: the consumer's ``feed.wait`` on the queue (value: the
@@ -349,7 +354,7 @@ class EpochBatches:
     n_train: int
     train_batch_size: int = TRAIN_BATCH_SIZE
     val_batch_size: int = PREDICT_BATCH_SIZE
-    prefetch: int = 8
+    prefetch: int = 2
     decompress_workers: Optional[int] = None
     cast_to_float32: bool = True
 

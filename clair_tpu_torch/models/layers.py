@@ -25,7 +25,11 @@ _TRUNCATED_STDDEV = 0.87962566103423978
 
 
 def selu(x: torch.Tensor) -> torch.Tensor:
-    return SELU_SCALE * torch.where(x >= 0.0, x, SELU_ALPHA * torch.expm1(x))
+    """The negative branch on expm1(min(x, 0)): ``torch.where`` passes a zero
+    gradient to the branch it does not take, and expm1 overflows above
+    88.72, where 0 * inf would make the gradient NaN."""
+    return SELU_SCALE * torch.where(x >= 0.0, x,
+                                    SELU_ALPHA * torch.expm1(torch.clamp(x, max=0.0)))
 
 
 def _keep_mask(generator: torch.Generator, x: torch.Tensor, keep_prob: float,

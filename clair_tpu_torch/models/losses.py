@@ -9,6 +9,7 @@ first (bf16 logits, int16 labels from the feed).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -63,6 +64,15 @@ def l2_regularization(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
                if k.rsplit(".", 1)[-1] != "b")
 
 
+@functools.lru_cache(maxsize=16)
+def _task_weights(task_weights: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """The task weights as a float32 tensor on ``device``, made once per
+    (values, device): a copy from pageable memory to a CUDA device waits for
+    the work queued before it, so a step that made it anew would wait for
+    its forward."""
+    return torch.tensor(task_weights, dtype=torch.float32, device=device)
+
+
 def total_loss(
     logits: Sequence[torch.Tensor],
     y: torch.Tensor,
@@ -100,10 +110,10 @@ def total_loss(
     if l2_raw is None:
         l2_raw = l2_regularization(params)
     l2 = l2_raw * l2_lambda
-    # from pageable memory: on a CUDA device the copy waits for the work
-    # queued before it, the forward (the span times that wait)
+    # held on the device (_task_weights): only a process's first loss on a
+    # device copies them and waits for the forward (the span times that wait)
     with trace.span("loss.sync"):
-        weights = torch.tensor(task_weights, dtype=torch.float32, device=y.device)
+        weights = _task_weights(tuple(float(w) for w in task_weights), y.device)
     loss = torch.sum(weights * torch.stack([*task_losses, l2]))
     components = dict(zip(COMPONENTS, task_losses))
     components["l2_without_lambda"] = l2_raw

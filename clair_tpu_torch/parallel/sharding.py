@@ -192,7 +192,9 @@ def make_train_step(model: ClairNet, optimizer: ClippedOptimizer, mesh=None):
     """step(x, y, generator, l2_lambda, sample_weights=None) -> (loss,
     components): the training forward (dropout from ``generator``), the
     backward, clip and update. Returns the pre-update loss as device
-    tensors; nothing waits for the device.
+    tensors; nothing waits for the device (the loss's task weights are
+    held there, models/losses.py), so the host may enqueue the next step
+    while the card runs this one.
 
     With a mesh, x and y are this rank's stripe of the global batch and the
     returned loss is the global batch's. The gradients are summed over the

@@ -111,3 +111,50 @@ def test_losses_are_sums_not_means():
     whole = losses.focal_loss(logits, labels)
     halves = losses.focal_loss(logits[:4], labels[:4]) + losses.focal_loss(logits[4:], labels[4:])
     np.testing.assert_allclose(whole.item(), halves.item(), rtol=RTOL)
+
+
+def _former_total(components, task_weights):
+    """The weighted total with the weights made from the Python sequence at
+    the call, the JAX package's form."""
+    weights = torch.tensor(task_weights, dtype=torch.float32)
+    return torch.sum(weights * torch.stack([*(components[k] for k in losses.COMPONENTS),
+                                            components["l2"]]))
+
+
+@pytest.mark.parametrize("loss_function", ["FocalLoss", "CrossEntropy"])
+@pytest.mark.parametrize("task_weights", [(1.0, 1.0, 1.0, 1.0, 1.0), (1.0, 0.5, 2.0, 0.3, 0.7)])
+def test_total_loss_is_bit_for_bit_the_former_product(loss_function, task_weights):
+    rs = np.random.RandomState(5)
+    n = 32
+    tree = _tree(param_shapes(NARROW), rs)
+    logits = [torch.from_numpy(lg) for lg in _logits(rs, n)]
+    y = torch.from_numpy(_labels(rs, n))
+    got, parts = losses.total_loss(logits, y, params_from_jax(tree),
+                                   loss_function=loss_function, task_weights=task_weights)
+    want = _former_total(parts, task_weights)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.item() == want.item()
+
+
+def test_task_weights_are_held_by_value_and_built_once(monkeypatch):
+    rs = np.random.RandomState(6)
+    n = 16
+    state = params_from_jax(_tree(param_shapes(NARROW), rs))
+    logits = [torch.from_numpy(lg) for lg in _logits(rs, n)]
+    y = torch.from_numpy(_labels(rs, n))
+    first, second = (1.0, 0.25, 3.0, 1.0, 0.5), (2.0, 0.25, 3.0, 1.0, 0.5)
+    cpu = torch.device("cpu")
+    a, b = losses._task_weights(first, cpu), losses._task_weights(second, cpu)
+    assert a is not b and a.tolist() != b.tolist()
+    assert losses._task_weights(tuple(first), cpu) is a
+    # a list, and weights that change between calls, each give their own total
+    for weights in (list(first), second, first):
+        got, parts = losses.total_loss(logits, y, state, task_weights=weights)
+        assert got.item() == _former_total(parts, weights).item()
+
+    built = []
+    tensor = torch.tensor
+    monkeypatch.setattr(torch, "tensor", lambda *a, **k: built.append(a) or tensor(*a, **k))
+    for weights in (first, list(second)):
+        losses.total_loss(logits, y, state, task_weights=weights)
+    assert built == []

@@ -18,6 +18,7 @@ from clair_tpu.models.clair import init_params
 from clair_tpu_torch.models.clair import (
     ClairNet, param_shapes, params_from_jax, params_to_jax,
 )
+from clair_tpu_torch.models.layers import SELU_ALPHA, SELU_SCALE, selu
 from clair_tpu_torch.params import ModelConfig
 from test_torch_train import jax_config
 
@@ -122,3 +123,31 @@ def test_rejects_unported_kernel_flags_and_dtypes():
                                      compute_dtype="bfloat16"))
     with pytest.raises(ValueError, match="compute_dtype"):
         ClairNet(dataclasses.replace(NARROW, compute_dtype="float16"))
+
+
+def _former_selu(x):
+    """SELU with expm1 on the whole input, the JAX package's form."""
+    return SELU_SCALE * torch.where(x >= 0.0, x, SELU_ALPHA * torch.expm1(x))
+
+
+def test_selu_is_the_former_forward_with_a_finite_gradient_past_expm1s_range():
+    """Across [-120, 120]: the forward bit for bit the former, the gradient
+    the former's wherever that is finite, and finite above 88.72, where the
+    former's expm1 overflowed in the branch not taken and made it NaN."""
+    points = torch.tensor([0.0, -0.0, 88.72, 88.8, 90.45, 120.0, -88.8, -120.0])
+    x = torch.cat([torch.linspace(-120.0, 120.0, 24001), points])
+    grads = []
+    for fn in (_former_selu, selu):
+        leaf = x.clone().requires_grad_(True)
+        out = fn(leaf)
+        out.backward(torch.ones_like(out))
+        grads.append((out.detach(), leaf.grad))
+    (want, want_grad), (got, got_grad) = grads
+    assert torch.equal(got, want)
+    finite = torch.isfinite(want_grad)
+    assert torch.equal(got_grad[finite], want_grad[finite])
+    assert torch.isfinite(got_grad).all()
+    for value in (88.8, 90.45, 120.0):
+        at = x == value
+        assert torch.isnan(want_grad[at]).all()
+        assert (got_grad[at] == SELU_SCALE).all()

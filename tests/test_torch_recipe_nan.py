@@ -3,7 +3,8 @@
 a function of numpy's global seed; train_model under poisoned memory
 (chip_smoke.poisoned) gives finite losses, the same bits in two runs; the
 tool's watch names the step, the kind and the tensor of an injected NaN,
-forward and backward; SELU's gradient is NaN above 88.72 in both packages;
+forward and backward; SELU's gradient is NaN above 88.72 in the JAX package
+and finite in the port;
 and the product's emulation (ops/bilstm_stream.py:split_bf16_product) sums
 the (0, 0) piece pair apart from the smaller pairs, as
 csrc/mma_product.cuh does, within float32 of float64."""
@@ -209,15 +210,17 @@ def test_watch_leaves_no_patch_behind():
 
 
 def test_selu_gradient_is_nan_above_float32_exp_overflow_in_both_packages():
-    """A property of the reference the port keeps: SELU's gradient is NaN
-    for an input above log(FLT_MAX) = 88.72 (expm1's derivative overflows in
-    the branch torch.where / jnp.where did not take, and 0 * inf is NaN),
-    in the port and in the JAX package alike; finite just below it."""
+    """The JAX package's SELU gradient is NaN for an input above
+    log(FLT_MAX) = 88.72 (expm1's derivative overflows in the branch
+    jnp.where did not take, and 0 * inf is NaN), and finite just below it;
+    the port's takes expm1 of min(x, 0), so its gradient is finite above
+    the threshold too (the linear branch's scale) and the JAX package's
+    below it."""
     import jax
     import jax.numpy as jnp
 
     from clair_tpu.models.layers import selu as jax_selu
-    from clair_tpu_torch.models.layers import selu
+    from clair_tpu_torch.models.layers import SELU_SCALE, selu
 
     threshold = _tool().SELU_NAN_ABOVE
     values = np.array([-1.0, threshold - 0.01, threshold + 0.01, 100.0], np.float32)
@@ -225,6 +228,7 @@ def test_selu_gradient_is_nan_above_float32_exp_overflow_in_both_packages():
     selu(x).sum().backward()
     want = np.asarray(jax.grad(lambda v: jax_selu(v).sum())(jnp.asarray(values)))
     got = x.grad.numpy()
-    assert np.isfinite(got[:2]).all() and np.isnan(got[2:]).all()
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isfinite(want[:2]).all() and np.isnan(want[2:]).all()
+    assert np.isfinite(got).all()
     np.testing.assert_allclose(got[:2], want[:2], rtol=1e-6)
+    np.testing.assert_array_equal(got[2:], np.float32(SELU_SCALE))

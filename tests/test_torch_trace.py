@@ -357,3 +357,16 @@ def test_readers_leave_out_profiled_records(readers, loop_records, monkeypatch):
     profiled = [r._replace(profiled=True) for r in loop_records]
     monkeypatch.setattr(trace, "records", lambda: profiled)
     assert all(reader.read(None) is None for reader in readers.values())
+
+
+def test_feed_holds_two_batches_ready_by_default():
+    """The producer runs ahead of the consumer by the queue's two batches
+    (and the one it waits to put), not by the whole epoch."""
+    dataset = _dataset(rows=400)
+    feed = iter(EpochBatches(dataset, np.arange(dataset.n_blocks), 400, 20, 20,
+                             decompress_workers=0))
+    next(feed)
+    threading.Event().wait(0.5)  # the producer fills the queue and waits
+    assembled = [r for r in trace.records() if r.name == "feed.assemble"]
+    assert len(assembled) == 1 + 2 + 1
+    assert len(list(feed)) == 19

@@ -88,10 +88,11 @@ RECIPE = ["--profile", "ont", "--train_compute_dtype", "float32"]
 RECALL_FLOOR = PRECISION_FLOOR = 0.9
 EXACT_SHARE = 0.85
 SANITIZERS = ("memcheck", "initcheck", "racecheck", "synccheck")
-# SELU's gradient is NaN above this input: expm1's derivative exp(x)
-# overflows float32 past log(FLT_MAX), and torch.where's backward gives the
-# branch it did not take 0 * inf (models/layers.py:selu, as the JAX
-# package's)
+# expm1's derivative exp(x) overflows float32 above this input, past
+# log(FLT_MAX): a SELU that computes its negative branch on the whole input,
+# as the JAX package's does, gets 0 * inf from the where's backward there, a
+# NaN gradient (models/layers.py:selu takes expm1 of min(x, 0) and stays
+# finite)
 SELU_NAN_ABOVE = float(np.log(np.finfo(np.float32).max))
 # the model's SELUs in the order a forward calls them (models/clair.py:
 # _layers): l3, l4, then each head's l5 stem and the head
