@@ -21,7 +21,11 @@ trunk over M of those processes (a mesh of N // M data rows of M; M must
 divide N and l4_num_units). ``train --profile_dir`` writes a
 torch.profiler trace. ``--no_stream_bilstm`` trains on the JAX package's
 lax.scan BiLSTM (models/bilstm.py:bilstm_scan) instead of the streaming
-kernel pair. ``variables`` prints a checkpoint's parameters and needs no
+kernel pair. ``train --architecture clair3_fa`` trains Clair3's
+full-alignment network (models/clair3_fa.py) instead of Clair v2's
+2BiLSTM: one process, float32, Clair3's batch of 2,000 and L2 lambda 1e-4
+unless ``--lambd`` says otherwise; the multi-device and BiLSTM flags are
+refused with it. ``variables`` prints a checkpoint's parameters and needs no
 device.
 
 The host commands need no model: the training-data chain
@@ -641,7 +645,23 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
     parser.add_argument("--no_stream_bilstm", action="store_true",
                         help="force the lax.scan BiLSTM instead of the "
                              "streaming-grid train kernel")
+    parser.add_argument("--architecture", default="clair2", choices=["clair2", "clair3_fa"],
+                        help="the network: Clair v2's 2BiLSTM over 33x8x4 pileup tensors, or "
+                             "Clair3's full-alignment CNN over 89x33x8 read matrices (one "
+                             "device, float32, batch 2,000)")
     args = parser.parse_args(argv)
+    full_alignment = args.architecture == "clair3_fa"
+    if full_alignment:
+        refused = [flag for flag, given in (
+            ("--model_parallel > 1", args.model_parallel > 1),
+            ("--num_devices > 1", (args.num_devices or 1) > 1),
+            ("--coordinator_address", bool(args.coordinator_address)),
+            ("--no_stream_bilstm", args.no_stream_bilstm),
+            ("--train_compute_dtype bfloat16", args.train_compute_dtype == "bfloat16"),
+        ) if given]
+        if refused:
+            raise ValueError(f"--architecture clair3_fa trains on one device in float32 and "
+                             f"has no BiLSTM: {', '.join(refused)} cannot go with it")
     logging.basicConfig(format="%(message)s", level=logging.INFO)
     if args.coordinator_address:
         if args.num_processes is None or args.process_id is None:
@@ -668,13 +688,23 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
 
     optimizer = "SGDM" if args.SGDM else ("Adam" if args.Adam else None)
     loss = "CrossEntropy" if args.cross_entropy else ("FocalLoss" if args.focal_loss else None)
-    model = ModelConfig(
-        **{k: v for k, v in dict(optimizer_name=optimizer, loss_function=loss).items() if v}
-    )
+    chosen = {k: v for k, v in dict(optimizer_name=optimizer, loss_function=loss).items() if v}
+    l2_lambda = L2_REGULARIZATION_LAMBDA
+    fixed = {}
+    if full_alignment:
+        from clair_tpu_torch.models.clair3_fa import (
+            FA_L2_LAMBDA, FA_TRAIN_BATCH_SIZE, FullAlignmentConfig,
+        )
+
+        model = FullAlignmentConfig(**chosen)
+        l2_lambda = FA_L2_LAMBDA
+        fixed = dict(train_batch_size=FA_TRAIN_BATCH_SIZE)
+    else:
+        model = ModelConfig(**chosen)
     config = TrainingConfig(
         model=model,
         learning_rate=args.learning_rate or INITIAL_LEARNING_RATE,
-        l2_lambda=args.lambd if args.lambd is not None else L2_REGULARIZATION_LAMBDA,
+        l2_lambda=args.lambd if args.lambd is not None else l2_lambda,
         output_prefix=args.ochk_prefix,
         init_checkpoint=args.chkpnt_fn,
         schedule=schedule if schedule == "adaptive" else args.clr_mode,
@@ -687,6 +717,7 @@ def cmd_train(argv, schedule="adaptive", device="cuda"):
         **({"train_compute_dtype": args.train_compute_dtype}
            if args.train_compute_dtype else {}),
         **({"use_stream_bilstm": False} if args.no_stream_bilstm else {}),
+        **fixed,
     )
     load_dataset = functools.partial(_load_dataset, args)
     report = {}

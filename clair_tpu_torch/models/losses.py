@@ -58,10 +58,11 @@ def weighted_cross_entropy(
 
 
 def l2_regularization(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sum(||w||^2 / 2) over every parameter but the biases (state_dict
-    keys ending in ``.b``)."""
+    """sum(||w||^2 / 2) over the kernels: every parameter but the biases
+    (state_dict keys ending in ``.b``) and batch norm's scale and shift
+    (``.bn.s``, ``.bn.b``), as Keras' ``kernel_regularizer`` covers them."""
     return sum(0.5 * torch.sum(torch.square(v)) for k, v in params.items()
-               if k.rsplit(".", 1)[-1] != "b")
+               if k.rsplit(".", 1)[-1] != "b" and ".bn." not in f".{k}")
 
 
 @functools.lru_cache(maxsize=16)

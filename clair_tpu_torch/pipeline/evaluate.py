@@ -11,7 +11,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -19,7 +19,8 @@ import torch
 from clair_tpu_torch.params import PREDICT_BATCH_SIZE, ModelConfig
 from clair_tpu_torch.task.labels import split_label_vector
 from clair_tpu_torch.data.bins import BinDataset
-from clair_tpu_torch.models.clair import ClairNet
+from clair_tpu_torch.models.build import build_model
+from clair_tpu_torch.models.clair3_fa import FullAlignmentConfig
 
 logger = logging.getLogger(__name__)
 
@@ -51,17 +52,18 @@ def _bincount2d(true_idx: np.ndarray, pred_idx: np.ndarray, n: int) -> np.ndarra
 
 def evaluate_model(
     params: dict,
-    model_config: ModelConfig,
+    model_config: Union[ModelConfig, FullAlignmentConfig],
     dataset: BinDataset,
     batch_size: int = PREDICT_BATCH_SIZE,
     print_report: bool = True,
     device: str = "cuda",
     scan: bool = False,
 ) -> EvaluationResult:
-    """Score the parameter tree ``params`` on every block of ``dataset``;
-    ``scan``: on the JAX package's lax.scan BiLSTM where ``model_config``
-    sets no kernel flag (models/clair.py:select_bilstm)."""
-    model = ClairNet.from_jax(params, model_config, torch.device(device), scan=scan)
+    """Score the parameter tree ``params`` on every block of ``dataset``
+    (ClairNet's, or with a FullAlignmentConfig Clair3_F's, its running
+    statistics included); ``scan``: on the JAX package's lax.scan BiLSTM
+    where ``model_config`` sets no kernel flag (models/clair.py:select_bilstm)."""
+    model = build_model(params, model_config, torch.device(device), scan=scan)
     start = time.time()
 
     cm_gt21 = np.zeros((21, 21), dtype=np.int64)

@@ -28,6 +28,14 @@ validation steps, the evaluation at the end) on the JAX package's lax.scan
 BiLSTM (models/bilstm.py:bilstm_scan), on either device. The auto rule
 (None) stays on the streaming pair whatever the dtype.
 
+Clair3's full-alignment network (models/clair3_fa.py) trains through the
+same loop, steps and feed when ``TrainingConfig.model`` is a
+``FullAlignmentConfig``: on one device, in the config's float32, the
+process's TF32 switches off for the whole run (``float32_products``: the
+backward's convolutions are launched from autograd's own thread, after any
+scope around the forward alone), its checkpoints carrying batch norm's
+running statistics. A mesh or the BiLSTM flags raise ValueError with it.
+
 With ``TrainingConfig.mesh`` (parallel/mesh.py) this process is one rank
 of a parallel run on ``TrainingConfig.device``: it reads the same epoch
 stream as every other rank, pads each global batch to a multiple of the
@@ -50,7 +58,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,7 +86,9 @@ from clair_tpu_torch.models.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from clair_tpu_torch.models.clair import ClairNet, init_params, params_from_jax, params_to_jax
+from clair_tpu_torch.models.build import build_model, init_params
+from clair_tpu_torch.models.clair import params_to_jax
+from clair_tpu_torch.models.clair3_fa import FullAlignmentConfig, float32_products
 from clair_tpu_torch.models.losses import COMPONENTS
 from clair_tpu_torch.parallel.distributed import (
     broadcast_checkpoint,
@@ -103,7 +113,8 @@ _REPORTED = ("loss", *COMPONENTS, "l2_without_lambda")
 
 @dataclass
 class TrainingConfig:
-    model: ModelConfig = field(default_factory=ModelConfig)
+    # ClairNet's ModelConfig, or Clair3_F's FullAlignmentConfig
+    model: Union[ModelConfig, FullAlignmentConfig] = field(default_factory=ModelConfig)
     learning_rate: float = INITIAL_LEARNING_RATE
     l2_lambda: float = L2_REGULARIZATION_LAMBDA
     l2_lambda_decay: float = L2_REGULARIZATION_LAMBDA_DECAY
@@ -127,7 +138,8 @@ class TrainingConfig:
     seed: int = 0
     evaluate_at_end: bool = True
     # the JAX package's training default (float32 masters, float32 loss and
-    # cell state); "float32" computes in float32 throughout
+    # cell state); "float32" computes in float32 throughout. ClairNet's: a
+    # FullAlignmentConfig computes in its own compute_dtype (float32)
     train_compute_dtype: str = "bfloat16"
     # block-decompression threads for the feed (None: one per spare core,
     # capped at 4; 0: inline)
@@ -178,12 +190,16 @@ class _StepValues:
         return dict(zip(_REPORTED, self._host.tolist()))
 
 
-def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(array: np.ndarray, device: torch.device,
+               counter: Optional[str] = None) -> torch.Tensor:
     """A feed batch on the device; from pinned memory without blocking on a
     CUDA device (the pinned buffer is held until the copy is done). Spans:
     ``dispatch.to_device``, and ``dispatch.pin_copy`` around the pinned
-    buffer's allocation and fill."""
+    buffer's allocation and fill; ``counter``, where given, names a counter
+    of the bytes sent (the loop counts x's as ``dispatch.x_bytes``)."""
     with trace.span("dispatch.to_device"):
+        if counter is not None:
+            trace.count(counter, array.nbytes)
         if device.type != "cuda":
             return torch.from_numpy(np.array(array))
         dtype = torch.from_numpy(np.empty(0, array.dtype)).dtype
@@ -244,10 +260,38 @@ def _check_supported(config: TrainingConfig, device: torch.device) -> None:
                            "torch.cuda.is_available() is false")
 
 
+def _check_full_alignment(dataset: BinDataset, config: TrainingConfig) -> None:
+    """What Clair3_F's training refuses: a mesh, the BiLSTM flags, and a bin
+    whose rows are not the model's input_shape."""
+    if config.mesh is not None:
+        raise ValueError("Clair3_F (clair3_fa) trains on one device: no mesh, no "
+                         "--num_devices, --coordinator_address or --model_parallel")
+    if config.use_stream_bilstm is not None:
+        raise ValueError("use_stream_bilstm (--no_stream_bilstm) picks a BiLSTM layer, and "
+                         "Clair3_F (clair3_fa) has none")
+    if dataset.n_blocks:
+        rows = tuple(dataset.x_block(0, cast=False).shape[1:])
+        if rows != tuple(config.model.input_shape):
+            raise ValueError(f"the bin's rows are {rows}; Clair3_F (clair3_fa) takes "
+                             f"{tuple(config.model.input_shape)}")
+
+
 def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
+    """Train ClairNet, or Clair3_F where ``config.model`` is a
+    FullAlignmentConfig (inside ``float32_products``, so that no
+    convolution or product of the run, backward included, takes TF32)."""
+    if isinstance(config.model, FullAlignmentConfig):
+        _check_full_alignment(dataset, config)
+        with float32_products():
+            return _train(dataset, config, config.model)
+    return _train(dataset, config,
+                  dataclasses.replace(config.model, compute_dtype=config.train_compute_dtype))
+
+
+def _train(dataset: BinDataset, config: TrainingConfig,
+           model_config: Union[ModelConfig, FullAlignmentConfig]) -> TrainResult:
     device = torch.device(config.device)
     _check_supported(config, device)
-    model_config = dataclasses.replace(config.model, compute_dtype=config.train_compute_dtype)
     if config.use_stream_bilstm:
         model_config = dataclasses.replace(model_config, use_pallas_stream_bilstm=True)
     scan = config.use_stream_bilstm is False
@@ -292,7 +336,7 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
         start_epoch = 1
     if tp is not None:
         params = shard_params(params, tp.index, tp.size)
-    model = ClairNet.from_jax(params, model_config, device, tp, scan)
+    model = build_model(params, model_config, device, tp, scan)
 
     def full_params():
         # a collective over the model group where the model is a shard
@@ -352,7 +396,7 @@ def train_model(dataset: BinDataset, config: TrainingConfig) -> TrainResult:
             if shard is not None:
                 x, y, weights = shard(x, y)
                 weights = _to_device(weights, device)
-            x, y = _to_device(x, device), _to_device(y, device)
+            x, y = _to_device(x, device, "dispatch.x_bytes"), _to_device(y, device)
             if is_training:
                 if clr is not None:
                     learning_rate = clr()
