@@ -1082,7 +1082,8 @@ def check_poisoned(dev, findings, fwd=(), bwd=(), train=(), precomputed=(), bils
     from clair_tpu_torch.ops import bilstm_stream as stream
     from clair_tpu_torch.ops import bilstm_train as b5
 
-    calls = dict.fromkeys(KERNELS, 0)
+    # every wrapper's count, the kernels this phase does not run at 0
+    calls = dict.fromkeys(kernel_counts(), 0)
     for geometry in fwd:
         b, t, f, h = geometry
         rs = np.random.RandomState(b + f + h)
@@ -2430,6 +2431,131 @@ HELD_OUT_EXACT_SHARE = 0.85
 PRODUCTION_RECALL, PRODUCTION_PRECISION, PRODUCTION_EXACT_SHARE = 0.93, 0.6, 0.9
 
 
+# Clair3_F's stride-1 convolutions (ops/conv3x3.py) at its training batch:
+# (channels, height, width) of the three BasicBlocks
+CONV_BATCH = 2_000
+CONV_STAGES = ((64, 45, 17), (128, 23, 9), (256, 12, 5))
+# each kernel's gap from float64, as a share of the largest element: the
+# float32 sums' round-off (tests/test_torch_conv3x3.py:CARD_TOL), which the
+# plain versions with three piece pairs must miss
+CONV_TOL = 1e-6
+
+
+def conv3x3_checks(dev, card):
+    """Phase 9e: the conv3x3 kernels' forward, dgrad and wgrad at B = 2,000
+    at each stage's shape, held against float64 (F.conv2d and its gradients
+    on the same card tensors) within CONV_TOL, where the plain versions with
+    three piece pairs must miss it; their ms (the split passes included)
+    beside the bound (the six-pass products at the bf16 peak, or the float32
+    tensors' bytes at 3.35 TB/s), the plain version's ms and cuDNN's
+    (``library_ms``, float32, TF32 off). Then one train step of the published
+    Clair3_F at B = 2,000, every launch count set to 0 just before it: six
+    launches of each kernel and six ``fa.conv`` counts of 1. Returns the
+    records and the step's launches."""
+    import torch.nn.functional as F
+    from clair_tpu_torch.ops.conv3x3 import (
+        PIECE_PAIRS, conv3x3, conv3x3_dgrad, conv3x3_dgrad_reference, conv3x3_reference,
+        conv3x3_wgrad, conv3x3_wgrad_reference,
+    )
+
+    three = tuple((i, j) for i, j in PIECE_PAIRS if i + j < 2)
+    print(f"conv3x3 at B={CONV_BATCH} on {card} (gaps from float64 as shares of the largest "
+          f"element, limit {CONV_TOL:g}; CUDA events, kernel and cuDNN mean of 5, plain 1, "
+          f"after a warm-up):")
+    records, misses = [], []
+    g = torch.Generator(device=dev).manual_seed(25)
+    for c, h, w in CONV_STAGES:
+        x = torch.randn((CONV_BATCH, c, h, w), generator=g, device=dev)
+        go = torch.randn((CONV_BATCH, c, h, w), generator=g, device=dev)
+        wt = torch.randn((3, 3, c, c), generator=g, device=dev) / math.sqrt(9 * c)
+        b = torch.randn((c,), generator=g, device=dev)
+        oihw = wt.permute(3, 2, 0, 1).contiguous()
+        x64, go64, oihw64 = x.double(), go.double(), oihw.double()
+        products = {
+            "forward": (lambda: conv3x3(x, wt, b),
+                        lambda pairs=PIECE_PAIRS: conv3x3_reference(x, wt, b, pairs),
+                        lambda: F.conv2d(x, oihw, b, padding=1),
+                        lambda: F.conv2d(x64, oihw64, b.double(), padding=1)),
+            "dgrad": (lambda: conv3x3_dgrad(go, wt),
+                      lambda pairs=PIECE_PAIRS: conv3x3_dgrad_reference(go, wt, pairs),
+                      lambda: torch.nn.grad.conv2d_input(x.shape, oihw, go, padding=1),
+                      lambda: torch.nn.grad.conv2d_input(x.shape, oihw64, go64, padding=1)),
+            "wgrad": (lambda: conv3x3_wgrad(x, go),
+                      lambda pairs=PIECE_PAIRS: conv3x3_wgrad_reference(x, go, pairs),
+                      lambda: torch.nn.grad.conv2d_weight(x, oihw.shape, go, padding=1),
+                      lambda: (torch.nn.grad.conv2d_weight(x64, oihw.shape, go64, padding=1)
+                               .permute(2, 3, 1, 0), go64.sum(dim=(0, 2, 3)))),
+        }
+        cells, act = CONV_BATCH * h * w, 4 * CONV_BATCH * h * w * c
+        ops = 6 * 2 * cells * c * 9 * c  # six bf16 passes
+        for name, (kernel, plain, library, exact) in products.items():
+            # the wgrad's outputs are (dw, db); gaps of dw, and of db apart
+            got, want, control = kernel(), exact(), plain(three)
+            if name != "wgrad":
+                got, want, control = (got,), (want,), (control,)
+            gaps = [((k.double() - e).abs().max() / e.abs().max()).item()
+                    for k, e in zip(got, want)]
+            three_gap = ((control[0].double() - want[0]).abs().max()
+                         / want[0].abs().max()).item()
+            del got, want, control
+            if max(gaps) > CONV_TOL or three_gap <= CONV_TOL:
+                misses.append((c, name, gaps, three_gap))
+            k, pl, lib = cuda_ms(kernel, 5), cuda_ms(plain, 1), cuda_ms(library, 5)
+            # float32 in and out: two activations (wgrad: two in, the kernel out)
+            moved = 2 * act + 4 * 9 * c * c
+            bound = max(ops / 989e12, moved / 3.35e12) * 1e3
+            term = "ops" if ops / 989e12 >= moved / 3.35e12 else "bytes"
+            print(f"  C={c} {h}x{w} {name}: gap {', '.join(f'{v:.3g}' for v in gaps)} (three "
+                  f"pairs {three_gap:.3g}); kernel {k:.4f} ms, bound {bound:.4f} ms ({term}), "
+                  f"plain {pl:.4f} ms, cuDNN {lib:.4f} ms")
+            records.append({"channels": c, "map": [h, w], "product": name, "gap": gaps,
+                            "three_pair_gap": three_gap, "ms": k, "bound_ms": bound,
+                            "bound_by": term, "plain_ms": pl, "library_ms": lib})
+        del x, go, x64, go64
+    total = sum(r["ms"] for r in records)
+    cudnn = sum(r["library_ms"] for r in records)
+    print(f"  one of each block's convolutions, all three products: kernel {total:.3f} ms, "
+          f"cuDNN {cudnn:.3f} ms (a train step runs two a block)")
+    assert not misses, f"conv3x3 against float64 (limit {CONV_TOL:g}): {misses}"
+    return records, conv3x3_train_step(dev)
+
+
+def conv3x3_train_step(dev):
+    """One train step of the published Clair3_F at B = 2,000 (random rows,
+    one label a task), every launch count set to 0 just before it: each
+    conv3x3 kernel six times and the forward's ``fa.conv`` six 1s and three
+    0s. Returns the step's launches."""
+    from clair_tpu_torch.models import clair3_fa
+    from clair_tpu_torch.ops import launch_counts, reset_launch_counts
+    from clair_tpu_torch.parallel.sharding import make_optimizer, make_train_step
+    from clair_tpu_torch.reference.clair3_fa import SPANS
+    from clair_tpu_torch.utils import trace
+
+    config = clair3_fa.FullAlignmentConfig()
+    model = clair3_fa.Clair3FANet.from_jax(
+        clair3_fa.init_params(torch.Generator().manual_seed(25), config), config, dev)
+    step = make_train_step(model, make_optimizer(dict(model.named_parameters()), "Adam", 1e-3))
+    g = torch.Generator().manual_seed(26)
+    x = torch.randint(-100, 101, (CONV_BATCH, *config.input_shape), generator=g)
+    x = x.to(torch.int16).to(dev)
+    y = torch.zeros(CONV_BATCH, 90, device=dev)
+    for first, _ in SPANS:
+        y[:, first] = 1
+    with clair3_fa.float32_products():
+        reset_launch_counts()
+        since = trace._clock()
+        loss = step(x, y, torch.Generator(device=dev).manual_seed(27), 1e-4)[0]
+        launched = launch_counts()
+    conv = [r.value for r in trace.records(since) if r.name == "fa.conv"]
+    print(f"  one Clair3_F train step at B={CONV_BATCH}: loss {float(loss):.5f}, launches "
+          f"{json.dumps({k: v for k, v in launched.items() if v})}, fa.conv {conv}")
+    assert torch.isfinite(loss).all()
+    assert {k: v for k, v in launched.items() if v} == {
+        "conv3x3": 6, "conv3x3_dgrad": 6, "conv3x3_wgrad": 6}, launched
+    assert sorted(conv) == [0, 0, 0, 1, 1, 1, 1, 1, 1], conv
+    return {k: launched[k] for k in ("conv3x3", "conv3x3_dgrad", "conv3x3_wgrad")}
+
+
 @contextlib.contextmanager
 def recipe_run():
     """Around one recipe's run: every launch count set to 0 just before
@@ -2877,6 +3003,10 @@ def main():
     bounds, library, f32_mode, row2_f32 = yardsticks(dev)
     phase("9d bounds and library calls", t)
 
+    t = time.perf_counter()
+    conv_records, conv_launches = conv3x3_checks(dev, card)
+    phase("9e conv3x3 at Clair3_F's training batch", t)
+
     assert "jax" not in sys.modules
     print(f"launches on the phase-10 paths (each run's, rows 1 and 2 only): "
           f"{json.dumps({k: {r: v[r] for r in STREAM_PAIR} for k, v in new_paths.items()})}")
@@ -2912,6 +3042,7 @@ def main():
         plain_ms=plain_ms[k], bound_ms=bounds[k][0], bound_by=bounds[k][1],
         library_ms=library[k], **({"float32": float32_modes[k]} if k in float32_modes else {}))
         for k in KERNELS]}))
+    print(json.dumps({"conv3x3": conv_records, "conv3x3_train_step_launches": conv_launches}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

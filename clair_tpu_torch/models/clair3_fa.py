@@ -34,8 +34,15 @@ running statistics are buffers (``conv1.bn.mean``, ``conv1.bn.var``), so
 float32 only: a float32 convolution or matmul must not run in TF32, and
 ``float32_products`` is the scope that keeps cuDNN and cuBLAS from it.
 
+The six stride-1 convolutions (the BasicBlocks' conv1 and conv2) run on
+ops/conv3x3.py: a hand-written kernel on the card, float32 products as three
+bf16 pieces on the tensor cores, and its plain version (the same piece
+arithmetic) on the CPU; the three stride-2 convolutions on cuDNN.
+
 Spans (utils/trace.py): ``fa.trunk`` around the three stages, ``fa.stage``
-around each (value: the stage, 1-3), ``fa.pool`` and ``fa.heads``.
+around each (value: the stage, 1-3), ``fa.pool`` and ``fa.heads``; the
+counter ``fa.conv`` records each convolution of a forward, 1 where it takes
+ops/conv3x3.py and 0 where it takes cuDNN.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from torch import nn
 
 from clair_tpu_torch.models.clair import params_from_jax
 from clair_tpu_torch.models.layers import dropout, he_fan_in, selu
+from clair_tpu_torch.ops.conv3x3 import conv3x3
 from clair_tpu_torch.utils import trace
 
 # Clair3's training batch (shared/param_f.py trainBatchSize) and the L2
@@ -246,16 +254,22 @@ class Clair3FANet(nn.Module):
         return model
 
     def _conv_bn(self, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """BN(conv3x3(x) + b), TF 'SAME' zero padding."""
+        """BN(conv3x3(x) + b), TF 'SAME' zero padding: a stride-1 convolution
+        on ops/conv3x3.py (the kernel on the card), the stride-2 ones on
+        cuDNN. The counter ``fa.conv`` records 1 or 0 for each."""
         layer = self.get_submodule(name)
         stride = self.strides[name]
-        (_, top, bottom), (_, left, right) = (same_padding(x.shape[2], KERNEL, stride),
-                                              same_padding(x.shape[3], KERNEL, stride))
-        padding = (top, left)
-        if (top, left) != (bottom, right):
-            x, padding = F.pad(x, (left, right, top, bottom)), 0
-        # HWIO -> OIHW
-        y = F.conv2d(x, layer.w.permute(3, 2, 0, 1), layer.b, stride=stride, padding=padding)
+        trace.count("fa.conv", int(stride == 1))
+        if stride == 1:
+            y = conv3x3(x, layer.w, layer.b)
+        else:
+            (_, top, bottom), (_, left, right) = (same_padding(x.shape[2], KERNEL, stride),
+                                                  same_padding(x.shape[3], KERNEL, stride))
+            padding = (top, left)
+            if (top, left) != (bottom, right):
+                x, padding = F.pad(x, (left, right, top, bottom)), 0
+            # HWIO -> OIHW
+            y = F.conv2d(x, layer.w.permute(3, 2, 0, 1), layer.b, stride=stride, padding=padding)
         bn = layer.bn
         return F.batch_norm(y, bn.mean, bn.var, bn.s, bn.b, training=train,
                             momentum=1.0 - self.config.bn_momentum, eps=self.config.bn_eps)

@@ -7,9 +7,10 @@ def _wrappers() -> tuple:
     from clair_tpu_torch.ops.bilstm2 import bilstm2
     from clair_tpu_torch.ops.bilstm_stream import bilstm_stream, bilstm_stream_backward
     from clair_tpu_torch.ops.bilstm_train import bilstm_train, bilstm_train_backward
+    from clair_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dgrad, conv3x3_wgrad
 
     return (bilstm_stream, bilstm_stream_backward, bilstm_train, bilstm_train_backward,
-            bilstm_precomputed, bilstm2)
+            bilstm_precomputed, bilstm2, conv3x3, conv3x3_dgrad, conv3x3_wgrad)
 
 
 def launch_counts() -> dict:

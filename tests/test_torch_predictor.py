@@ -160,7 +160,8 @@ def test_cli_call_bam_runs_the_jax_runner_with_the_port_predictor(
     report = capsys.readouterr().err.strip().splitlines()[-1]
     assert json.loads(report) == {"kernel_launches": dict.fromkeys(
         ["bilstm_stream", "bilstm_stream_backward", "bilstm_train", "bilstm_train_backward",
-         "bilstm_precomputed", "bilstm2"], 0)}
+         "bilstm_precomputed", "bilstm2", "conv3x3", "conv3x3_dgrad",
+         "conv3x3_wgrad"], 0)}
 
 
 def test_cli_call_bam_parallel_threaded_matches_jax(ont_genome):

@@ -362,7 +362,8 @@ def test_train_command_on_a_jax_written_bin(tmp_path, capsys):
     report = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
     assert report["kernel_launches"] == dict.fromkeys(
         ["bilstm_stream", "bilstm_stream_backward", "bilstm_train", "bilstm_train_backward",
-         "bilstm_precomputed", "bilstm2"], 0)
+         "bilstm_precomputed", "bilstm2", "conv3x3", "conv3x3_dgrad",
+         "conv3x3_wgrad"], 0)
     assert [e for _, e in report["validation_losses"]] == [1]
     assert all(math.isfinite(v) for v, _ in report["training_losses"])
     params, extra = jax_ckpt.load_checkpoint(checkpoint_path(prefix, 1))
